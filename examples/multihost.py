@@ -1,27 +1,28 @@
-"""Multi-process (pod-mode) training demo.
+"""Multi-process training demo.
 
-On a real TPU pod slice, run ONE copy of this script per host with no
-arguments — `parallel.multihost.initialize()` auto-detects the
-coordinator from the Cloud TPU metadata — and the classification runner
-trains one model over every chip of every host:
+On several hosts, run ONE copy of this script per host, naming the
+coordinator, the process count and this process's id, and the
+classification runner trains one model over every device of every host:
 
     python examples/multihost.py experiments/mnist_ode/mlp.yaml \
-        --train.data_parallel=gspmd
+        --train.data_parallel=gspmd \
+        --coordinator=host0:12345 --num-processes=2 --process-id=0
 
-For a laptop/CI demonstration with no pod, `--demo` self-launches TWO
-local processes × 2 virtual CPU devices each (Gloo collectives over
-localhost) and trains a tiny config over the 4-device process-spanning
-mesh — the same code path a pod takes (this mirrors
-``tests/test_multihost.py``).
+For a laptop/CI demonstration, `--demo` self-launches TWO local
+processes × 2 virtual CPU devices each (Gloo collectives over localhost)
+and trains a tiny config over the 4-device process-spanning mesh — the
+same code path several hosts take (this mirrors
+``tests/test_multihost.py``). The demo workers pin the CPU, so no two
+processes ever open the same GPU.
 
-What pod mode does differently (all automatic once ``initialize`` ran):
+What multi-process mode does differently (all automatic once
+``initialize`` ran):
 
 - the mesh spans all processes' devices (``make_mesh`` uses the global
   ``jax.devices()``);
 - every process feeds only its contiguous row slice of each
   (seed-deterministic) batch — assembled into one global DP-sharded
-  array, XLA routes the gradient psum over ICI within hosts and DCN
-  across;
+  array, XLA routes the gradient psum within and across hosts;
 - eval batches are globally sharded; checkpoints save the all-gathered
   global state (non-primary processes under ``proc{i}/``).
 """
@@ -66,8 +67,8 @@ def _demo_worker(proc: int, port: str) -> None:
             "--train.print_frequency=2",
             "--train.evaluate_every=6",
             "--train.data_parallel=gspmd",
-            "--train.checkpoint_dir=/tmp/mh_demo/ckpt",
-            "--train.log_dir=/tmp/mh_demo/logs",
+            "--train.checkpoint_dir=checkpoints/mh_demo",
+            "--train.log_dir=logs/mh_demo",
         ],
         os.path.join(
             os.path.dirname(__file__), "..", "experiments", "mnist_ode",
@@ -106,16 +107,31 @@ if __name__ == "__main__":
     elif "--demo" in sys.argv:
         _demo()
     else:
-        # pod mode: initialize (auto-detected) then hand off to the
-        # standard experiment entry path
+        # multi-host mode: initialize, then hand off to the standard
+        # experiment entry path
         from localregneuralde_tpu.parallel import multihost
 
-        multihost.initialize()
+        dist = {"--coordinator": None, "--num-processes": None,
+                "--process-id": None}
+        overrides = []
+        for arg in sys.argv[2:]:
+            key, _, val = arg.partition("=")
+            if key in dist:
+                dist[key] = val
+            else:
+                overrides.append(arg)
+        multihost.initialize(
+            coordinator_address=dist["--coordinator"],
+            num_processes=(None if dist["--num-processes"] is None
+                           else int(dist["--num-processes"])),
+            process_id=(None if dist["--process-id"] is None
+                        else int(dist["--process-id"])),
+        )
 
         from localregneuralde_tpu.harness import define_configuration
         from localregneuralde_tpu.harness.runner import (
             run_classification_experiment,
         )
 
-        cfg = define_configuration(sys.argv[2:], sys.argv[1])
+        cfg = define_configuration(overrides, sys.argv[1])
         print(run_classification_experiment(cfg, "multihost"))

@@ -2,7 +2,7 @@
 """Quickstart: train a locally-regularized Neural ODE on a toy task and
 watch the NFE drop.
 
-Run: python examples/quickstart.py  (CPU or TPU; ~1 min on CPU)
+Run: python examples/quickstart.py  (CPU or GPU; ~1 min on CPU)
 """
 import sys
 from pathlib import Path

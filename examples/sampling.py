@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Score-SDE sampling: adaptive reverse-time VP-SDE and probability-flow
-samplers, the persistent-kernel fast path, and multi-device fan-out.
+samplers, a score network as a module, and multi-device fan-out.
 
-Run: python examples/sampling.py  (CPU or TPU; ~1 min on CPU)
+Run: python examples/sampling.py  (CPU or GPU; ~1 min on CPU)
 """
 import sys
 from pathlib import Path
@@ -37,11 +37,8 @@ def main():
           f"NFE={int(sol.nfe_drift) + int(sol.nfe_diffusion)}")
 
     # --- 2. A TDChain-of-Dense score NETWORK (the reference's
-    # time-appended-channel convention) additionally unlocks the
-    # persistent whole-solve Pallas kernel: pass score_module and the
-    # entire adaptive solve — score-net evals, beta(t) scaling, Brownian
-    # tree — runs in one TPU program (falls back to the XLA loop when
-    # unservable).  Params realizing s(x, t) = -x: the exact score of
+    # time-appended-channel convention) passed as score_module with its
+    # raw params. Params realizing s(x, t) = -x: the exact score of
     # N(0, I) data, so samples must recover N(0, I).
     F = 8
     net = TDChain(Dense(F + 1, F))
@@ -51,12 +48,12 @@ def main():
         None, (256, F), jax.random.PRNGKey(1), params, score_module=net,
         rtol=1e-2, atol=1e-2, max_steps=512,
     )
-    print(f"kernel SDE sampler: mean={float(s.mean()):+.3f} "
+    print(f"module SDE sampler: mean={float(s.mean()):+.3f} "
           f"std={float(s.std()):.3f} (target 0, 1) "
           f"naccept={int(sol.naccept)} nreject={int(sol.nreject)}")
 
     # --- 3. The deterministic probability-flow ODE sampler (adaptive
-    # Tsit5; same score module, same kernel dispatch).
+    # Tsit5; same score module).
     s, sol = sample_probability_flow(
         None, (256, F), jax.random.PRNGKey(2), params, score_module=net,
         rtol=1e-4, atol=1e-6, max_steps=512,
@@ -64,9 +61,9 @@ def main():
     print(f"probability-flow:   mean={float(s.mean()):+.3f} "
           f"std={float(s.std()):.3f} NFE={int(sol.nfe)}")
 
-    # --- 4. Inference-scale fan-out: shard_map runs one persistent
-    # kernel per device, each with its own adaptive grid and noise
-    # stream — zero cross-chip traffic.
+    # --- 4. Inference-scale fan-out: shard_map runs one adaptive solve
+    # per device, each with its own grid and noise stream — zero
+    # cross-device traffic.
     n_dev = len(jax.devices())
     if n_dev > 1:
         from jax import lax

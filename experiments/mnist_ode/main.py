@@ -10,13 +10,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 from localregneuralde_tpu.harness import define_configuration
 from localregneuralde_tpu.harness.runner import run_classification_experiment
+from localregneuralde_tpu.utils.compile_cache import enable_compile_cache
 
 
 def main(config_file: str, args):
+    enable_compile_cache()
     cfg = define_configuration(args, config_file)
     name = Path(config_file).stem
     summary = run_classification_experiment(cfg, name)
     print("summary:", summary)
+    return summary
 
 
 if __name__ == "__main__":

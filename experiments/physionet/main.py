@@ -10,14 +10,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 from localregneuralde_tpu.harness import define_configuration
 from localregneuralde_tpu.harness.latent_runner import run_latent_ode_experiment
+from localregneuralde_tpu.utils.compile_cache import enable_compile_cache
 
 
 def main(config_file: str, args):
+    enable_compile_cache()
     cfg = define_configuration(args, config_file)
     cfg.model.model_type = "time_series"
     name = Path(config_file).stem
     summary = run_latent_ode_experiment(cfg, name)
     print("summary:", summary)
+    return summary
 
 
 if __name__ == "__main__":

@@ -1,12 +1,12 @@
-"""localregneuralde_tpu — a TPU-native neural differential equation framework.
+"""localregneuralde_tpu — a neural differential equation framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 ``avik-pal/LocalRegNeuralDE.jl`` (ICML 2023, arXiv 2303.02262): adaptive
 ODE/SDE solvers as bounded reverse-differentiable XLA loops, differentiable
 single solver steps whose embedded local-error / stiffness estimates act as a
 local regularizer, a neural-DE layer zoo with explicit (params, state)
-semantics, and a full experiment harness — designed TPU-first (SPMD sharding,
-static shapes, fused Pallas kernels) rather than as a translation.
+semantics, and a full experiment harness — designed for XLA (SPMD sharding,
+static shapes, compiled loops) rather than as a translation.
 """
 from .core import ArrayAndTime, get_array, get_scalar
 from .models import (

@@ -53,7 +53,7 @@ def load_checkpoint(path: str) -> Optional[Any]:
 
 
 def _orbax_save(path: str, state: Any):
-    """Orbax PyTree checkpoint (TPU-idiomatic, async-capable backend)."""
+    """Orbax PyTree checkpoint (async-capable backend)."""
     import orbax.checkpoint as ocp
 
     with ocp.PyTreeCheckpointer() as ckptr:

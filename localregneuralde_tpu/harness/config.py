@@ -3,11 +3,14 @@
 Mirror of the reference config system (``experiments/src/config.jl``):
 dataclass tree with defaults, loaded from YAML, with ``--a.b.c=value`` CLI
 overrides merged on top (the SimpleConfig.define_configuration analog,
-``experiments/mnist_ode/main.jl:21``).
+``experiments/mnist_ode/main.jl:21``). The YAML files are read by
+``parse_yaml_subset``, so loading a config needs no YAML package.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import re
 from dataclasses import dataclass, field
 from typing import Any, List, Optional
 
@@ -23,24 +26,10 @@ class SolverConfig:
     # cost ∝ accepted steps) | direct | interpolating (reference default
     # sensealg, neural_ode.jl:11) | backsolve
     adjoint: str = "stored"
-    # MXU input precision for dynamics matmuls: auto (highest iff
-    # rtol < 1e-4 — TPU's default one-pass-bf16 f32 matmuls flood the error
+    # matmul input precision for dynamics matmuls: auto (highest iff
+    # rtol < 1e-4 — reduced-precision f32 matmuls flood the error
     # estimate with noise at tight tolerances) | default | high | highest
     precision: str = "auto"
-    # backward-pass precision for the stored-adjoint recompute/cotangent
-    # dots: 'match' re-runs them at `precision`; 'default' drops them to
-    # the backend-fast one-pass path — the controller's decisions were
-    # already made in the forward, so this trades ~1e-3-relative gradient
-    # noise (ordinary bf16-training noise) for a large backward speedup at
-    # tight tolerances. Two-level windowed replay always keeps `precision`
-    # (its replay must track the forward's accept/reject decisions).
-    # Effective on the fused Pallas backward families (the XLA-twin
-    # backward keeps `precision`).
-    grad_precision: str = "match"
-    # persistent-loop Pallas kernels (whole solve / whole sweep in one TPU
-    # program; automatic fallback outside the dense-knot regime) — only
-    # effective when the Pallas kernel family is active
-    use_persistent: bool = True
     # stored-adjoint dense-knot capacity (0 = default 512): solves with
     # more accepted steps use two-level windowed replay — memory is
     # O(knot_window + max_steps/sqrt(max_steps))
@@ -68,9 +57,6 @@ class ModelConfig:
     mlp_hidden_state_size: int = 100
     mlp_num_hidden_layers: int = 1
     mlp_time_dependent: bool = True
-    # fused Pallas TD-MLP kernels ("auto": on for TPU backends when the
-    # dynamics is a 2-layer TDChain; "on"/"off" force)
-    use_pallas: str = "auto"
     # low-precision dynamics compute (bandwidth lever for the conv family;
     # float32 | bfloat16); solver math stays f32 regardless
     dynamics_compute_dtype: str = "float32"
@@ -78,8 +64,7 @@ class ModelConfig:
     # reference (Lux testmode) semantic; 'batch' normalizes with current
     # batch statistics in eval too — an opt-in escape hatch for the
     # BN-inside-ODE-dynamics pathology (one running average cannot track
-    # statistics that vary along the trajectory; RESULTS.md round-4
-    # diagnosis). Documented deviation; default is reference-faithful.
+    # statistics that vary along the trajectory). Documented deviation; default is reference-faithful.
     bn_eval_stats: str = "running"
     # time_series
     ts_in_dims: int = 37
@@ -117,9 +102,8 @@ class OptimizerConfig:
     momentum: float = 0.0
     weight_decay: float = 0.0
     # 0 = off. Global-norm gradient clipping BEFORE the optimizer update
-    # (TPU-first production knob, no reference counterpart): stochastic
-    # regularized dynamics can hit one-step blow-ups late in training
-    # (RESULTS.md SDE frontier: w_reg 30-100 destabilization events).
+    # (production knob, no reference counterpart): stochastic
+    # regularized dynamics can hit one-step blow-ups late in training.
     gradient_clip_norm: float = 0.0
     scheduler: LRSchedulerConfig = field(default_factory=LRSchedulerConfig)
 
@@ -138,8 +122,8 @@ class TrainConfig:
     # multi-chip training (additive over the reference, SURVEY §2e):
     # 'none' = single device; 'gspmd' = DP(×TP) mesh sharding with the
     # reference-exact shared GLOBAL adaptive grid (parallel/sharded_train);
-    # 'shardmap' = opt-in per-shard-grid DP that keeps the persistent
-    # Pallas kernels engaged per chip (documented estimator deviation,
+    # 'shardmap' = opt-in per-shard-grid DP: each device runs its own
+    # adaptive solve (documented estimator deviation,
     # parallel/shardmap_train).
     data_parallel: str = "none"
     # 'model' mesh-axis size (tensor parallel over the dynamics Dense
@@ -148,29 +132,27 @@ class TrainConfig:
     # K > 1 scans K optimizer steps inside ONE donated jit per host
     # dispatch (amortizes dispatch latency + host-side batch handling;
     # train.make_multi_train_step). Must divide print_frequency and
-    # evaluate_every; 0 = auto (largest valid K <= 8 on the TPU backend,
-    # 1 elsewhere — runner.resolve_steps_per_call). TPU-first addition —
-    # no reference counterpart.
+    # evaluate_every; 0 = auto (K = 1 — runner.resolve_steps_per_call).
+    # No reference counterpart.
     steps_per_call: int = 1
     # N > 1 splits each batch into N sequential microbatches, accumulating
     # gradients in a lax.scan carry before ONE optimizer update (large
     # effective batches on one chip, O(1) memory in N). Must divide
     # dataset.train_batchsize; data_parallel='none' only. Composes with
-    # steps_per_call. TPU-first addition — no reference counterpart.
+    # steps_per_call. No reference counterpart.
     grad_accumulation: int = 1
     # N >= 2 keeps N batches placed on device ahead of the training loop
     # (async H2D overlaps the running step — harness.data.
     # prefetch_to_device). 0/1 = place-on-demand. Composes with
     # steps_per_call (whole K-stacks are prefetched) and data_parallel
-    # (placement is the mesh-sharded/global one). TPU-first addition — no
-    # reference counterpart (utils.jl's channel overlaps host assembly
-    # only).
+    # (placement is the mesh-sharded/global one). No reference
+    # counterpart (utils.jl's channel overlaps host assembly only).
     device_prefetch: int = 2
     # decay > 0 maintains an exponential moving average of params inside
     # the fused step (ema' = ema·d + params·(1−d)); evaluation and
     # best-checkpoint selection then use the EMA weights (standard for
     # score-model/serving-quality training). data_parallel='none' only.
-    # TPU-first addition — no reference counterpart.
+    # No reference counterpart.
     ema_decay: float = 0.0
 
 
@@ -243,6 +225,105 @@ def _parse_value(raw: str) -> Any:
     return raw
 
 
+_INT_RE = re.compile(r"[-+]?[0-9]+")
+_FLOAT_RE = re.compile(
+    r"[-+]?(?:[0-9]+\.[0-9]*|\.[0-9]+|[0-9]+)(?:[eE][-+]?[0-9]+)?"
+)
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a ``#`` comment that starts the line or follows whitespace,
+    outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _yaml_scalar(tok: str, where: str) -> Any:
+    tok = tok.strip()
+    if len(tok) >= 2 and tok[0] == tok[-1] == '"':
+        return json.loads(tok)
+    if len(tok) >= 2 and tok[0] == tok[-1] == "'":
+        return tok[1:-1].replace("''", "'")
+    if tok[:1] in "\"'[]{}&*!|>%@`" or tok.startswith("- "):
+        raise ValueError(f"{where}: unsupported YAML value {tok!r}")
+    if tok.lower() in ("true", "false"):
+        return tok.lower() == "true"
+    if tok in ("null", "Null", "NULL", "~"):
+        return None
+    if _INT_RE.fullmatch(tok):
+        return int(tok)
+    if _FLOAT_RE.fullmatch(tok):
+        return float(tok)
+    return tok
+
+
+def _yaml_value(tok: str, where: str) -> Any:
+    tok = tok.strip()
+    if tok.startswith("["):
+        if not tok.endswith("]") or "[" in tok[1:] or "]" in tok[:-1]:
+            raise ValueError(f"{where}: unsupported flow list {tok!r}")
+        inner = tok[1:-1].strip()
+        if not inner:
+            return []
+        return [_yaml_scalar(v, where) for v in inner.split(",")]
+    return _yaml_scalar(tok, where)
+
+
+def parse_yaml_subset(text: str) -> dict:
+    """Parse the YAML subset the shipped experiment configs use: block
+    maps nested by indentation, ``# comments``, plain or quoted scalars
+    and one-line flow lists (``image_size: [28, 28]``). Scalars follow
+    YAML 1.2's core schema (``true``/``false``, ``null``, ints, floats).
+    Anything else (block lists, anchors, multi-line values, tabs) raises
+    ``ValueError`` rather than being misread."""
+    root: dict = {}
+    # entries: [indent of the key that opened the map, map, child indent]
+    stack = [[-1, root, None]]
+    opened = []
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        where = f"line {lineno}"
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        body = line.lstrip(" ")
+        indent = len(line) - len(body)
+        if body.startswith("\t") or body.startswith("-"):
+            raise ValueError(f"{where}: tabs and block lists are unsupported")
+        m = re.match(r"""("[^"]*"|'[^']*'|[^:"']+):(?:\s+(.*))?$""", body)
+        if m is None:
+            raise ValueError(f"{where}: expected 'key: value', got {body!r}")
+        key = _yaml_scalar(m.group(1), where)
+        while stack[-1][0] >= indent:
+            stack.pop()
+        top = stack[-1]
+        if top[2] is None:
+            top[2] = indent
+        elif top[2] != indent:
+            raise ValueError(f"{where}: inconsistent indentation")
+        if key in top[1]:
+            raise ValueError(f"{where}: duplicate key {key!r}")
+        rest = (m.group(2) or "").strip()
+        if rest:
+            top[1][key] = _yaml_value(rest, where)
+        else:
+            child: dict = {}
+            top[1][key] = child
+            stack.append([indent, child, None])
+            opened.append((top[1], key))
+    for parent, key in opened:
+        if not parent[key]:
+            parent[key] = None  # 'key:' with nothing nested is null
+    return root
+
+
 def _apply_override(cfg, dotted: str, value: Any):
     parts = dotted.split(".")
     obj = cfg
@@ -261,10 +342,8 @@ def define_configuration(
     """Load YAML config + ``--a.b.c=value`` CLI overrides."""
     data = {}
     if config_file:
-        import yaml
-
         with open(config_file) as f:
-            data = yaml.safe_load(f) or {}
+            data = parse_yaml_subset(f.read()) or {}
     cfg = _from_dict(ExperimentConfig, data)
     for arg in args or []:
         if not arg.startswith("--") or "=" not in arg:

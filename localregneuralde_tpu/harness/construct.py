@@ -75,8 +75,6 @@ def _node_kwargs(cfg: ExperimentConfig):
         solver=s.ode_solver,
         adjoint=s.adjoint,
         precision=s.precision,
-        grad_precision=s.grad_precision,
-        use_persistent=s.use_persistent,
         knot_window=s.knot_window if s.knot_window > 0 else None,
         compute_dtype=cfg.model.dynamics_compute_dtype,
     )
@@ -85,8 +83,6 @@ def _node_kwargs(cfg: ExperimentConfig):
 def _construct_mlp_ode(cfg: ExperimentConfig):
     """Flatten → NeuralODE(TDChain MLP) → classifier
     (reference ``construct.jl:180-200``)."""
-    import jax
-
     m = cfg.model
     hsize = m.mlp_hidden_state_size
     td = 1 if m.mlp_time_dependent else 0
@@ -96,18 +92,9 @@ def _construct_mlp_ode(cfg: ExperimentConfig):
         layers.append(Dense(hsize + td, hsize, "tanh"))
     layers.append(Dense(hsize + td, insize))
     dynamics = TDChain(*layers) if m.mlp_time_dependent else Chain(*layers)
-    pallas_ok = m.mlp_time_dependent and m.mlp_num_hidden_layers == 1
-    if m.use_pallas == "on":
-        use_pallas = True
-    elif m.use_pallas == "auto":
-        use_pallas = pallas_ok and jax.default_backend() == "tpu"
-    else:
-        use_pallas = False
     return Chain(
         flatten=Flatten(),
-        neural_ode=NeuralODE(
-            dynamics, use_pallas=use_pallas, **_node_kwargs(cfg)
-        ),
+        neural_ode=NeuralODE(dynamics, **_node_kwargs(cfg)),
         sol_to_arr=WrappedFunction(diffeqsol_to_array),
         classifier=Dense(insize, m.num_classes),
     )
@@ -116,8 +103,6 @@ def _construct_mlp_ode(cfg: ExperimentConfig):
 def _construct_mlp_sde(cfg: ExperimentConfig):
     """784 → 32 downsample → NeuralDSDE → classifier
     (reference ``construct.jl:202-210``)."""
-    import jax
-
     from ..models.neural_sde import NeuralDSDE
 
     m = cfg.model
@@ -126,12 +111,6 @@ def _construct_mlp_sde(cfg: ExperimentConfig):
     noise_dims = m.sde_noise_dims or None
     drift = Chain(Dense(32, 64, "tanh"), Dense(64, 32))
     diffusion = Dense(32, 32 * (noise_dims or 1))
-    if m.use_pallas == "on":
-        use_pallas = True
-    elif m.use_pallas == "auto":
-        use_pallas = jax.default_backend() == "tpu"
-    else:
-        use_pallas = False
     return Chain(
         flatten=Flatten(),
         downsample=Dense(insize, 32),
@@ -145,11 +124,8 @@ def _construct_mlp_sde(cfg: ExperimentConfig):
             regularize=m.regularize,
             adjoint=s.adjoint,
             precision=s.precision,
-            grad_precision=s.grad_precision,
             solver=m.sde_solver,
             noise_dims=noise_dims,
-            use_pallas=use_pallas,
-            use_persistent=s.use_persistent,
         ),
         sol_to_arr=WrappedFunction(diffeqsol_to_array),
         classifier=Dense(32, m.num_classes),
@@ -173,18 +149,11 @@ def _construct_cifar10_cnn(cfg: ExperimentConfig):
         ),
         Conv((3, 3), 65, 8, use_bias=False),
     )
-    # 'auto' deliberately does NOT enable the fused conv kernels: measured
-    # on v5e they run 3-4x slower than XLA's native conv chain at these
-    # shapes (M=64/K=64 tap matmuls underfill the MXU; see RESULTS.md).
-    # 'on' still forces them (they are correct — parity-tested).
-    use_pallas = m.use_pallas == "on"
     h, w = m.image_size
     return Chain(
         augment=AugmenterLayer(Conv((3, 3), 3, 5), axis=-1),
         bn=BatchNorm(8, eval_stats=es),
-        neural_ode=NeuralODE(
-            node_core, use_pallas=use_pallas, **_node_kwargs(cfg)
-        ),
+        neural_ode=NeuralODE(node_core, **_node_kwargs(cfg)),
         sol_to_arr=WrappedFunction(diffeqsol_to_array),
         classifier=Chain(
             Conv((3, 3), 8, 1, "gelu"),
@@ -215,25 +184,11 @@ def construct_time_series(cfg: ExperimentConfig, saveat):
         Dense(m.ts_node_dims, m.ts_hidden_dims, "tanh"),
         Dense(m.ts_hidden_dims, m.ts_node_dims, "tanh"),
     )
-    kwargs = _node_kwargs(cfg)
-    # the gen dynamics is the autonomous Dense-chain Pallas family
-    # (ops/pallas/fused_solve.py::match_dense_chain) — persistent
-    # solve/sweep kernels serve it on TPU
-    import jax
-
-    if m.use_pallas == "on":
-        use_pallas = True
-    elif m.use_pallas == "auto":
-        use_pallas = jax.default_backend() == "tpu"
-    else:
-        use_pallas = False
     return Chain(
         gru=gru,
         rec_to_gen=rec_to_gen,
         reparam=ReparameterizeLayer(),
-        neural_ode=NeuralODE(
-            gen_dynamics, saveat=saveat, use_pallas=use_pallas, **kwargs
-        ),
+        neural_ode=NeuralODE(gen_dynamics, saveat=saveat, **_node_kwargs(cfg)),
         sol_to_ts=WrappedFunction(diffeqsol_to_timeseries),
         gen_to_data=Dense(m.ts_node_dims, m.ts_in_dims),
     )

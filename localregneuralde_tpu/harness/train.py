@@ -1,6 +1,6 @@
 """Training step, train state, and warmup.
 
-Reference: ``experiments/src/utils.jl:104-153``. TPU-first deviation: the
+Reference: ``experiments/src/utils.jl:104-153``. Deviation: the
 forward+backward+optimizer-update is ONE jitted, donated function (XLA fuses
 the whole step; separate fwd/bwd/opt dispatches would leave performance on
 the table). Per-phase wall-clock parity metrics are still available via
@@ -53,7 +53,7 @@ def settle_state_shapes(model, loss_fn, ts: TrainState, data,
     ``jax.eval_shape`` (no compute, no compilation). Without this, the
     donated train step is guaranteed one recompilation: the first call
     traces with init shapes, every later call with settled shapes — at
-    tight-tolerance configs that is minutes of extra TPU compile."""
+    tight-tolerance configs that is a second full compile."""
     st_sd = jax.eval_shape(
         lambda p, s: loss_fn(model, p, s, data, w_reg, training=True)[1],
         ts.params, ts.state,
@@ -201,7 +201,7 @@ def make_train_step(model, loss_fn, optimizer,
     schedulers (reference ``Optimisers.adjust``, ``main.jl:94-95``) work
     without recompilation. ``grad_accumulation=N`` splits the batch into N
     sequential microbatches and applies ONE optimizer update on the mean
-    gradient (``train.grad_accumulation`` — TPU-first addition for
+    gradient (``train.grad_accumulation`` — an addition for
     large effective batches on one chip; no reference counterpart).
     """
     n_micro = int(grad_accumulation)
@@ -222,7 +222,7 @@ def make_multi_train_step(model, loss_fn, optimizer,
     """Fused K-step train call: a donated jit around ``lax.scan`` over the
     single-step body — K optimizer steps per host dispatch.
 
-    TPU-first addition (no reference counterpart — the reference dispatches
+    Addition (no reference counterpart — the reference dispatches
     one CUDA step per Julia loop iteration): each host→device round trip
     costs fixed dispatch latency plus Python-side batch handling; scanning
     K steps on device amortizes both by K× while keeping the arithmetic of

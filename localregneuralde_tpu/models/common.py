@@ -21,7 +21,7 @@ def _apply_time_dependent(layer, params, state, arr, t, training):
     ``conv(concat(x, t·1), W) = conv(x, W[:,:,:C,:]) + t·conv(1, W[:,:,C:,:])``
     exactly (linearity), so the time channel becomes a tiny 1-channel conv of
     a constant ones image — avoiding (a) materializing the (B,H,W,C+1)
-    concat copy every dynamics eval and (b) the MXU-unfriendly odd channel
+    concat copy every dynamics eval and (b) the matmul-unfriendly odd channel
     count (65 instead of 64) in the CIFAR dynamics. Returns None when the
     layer has no conv fast path (generic concat applies). Parameter layout
     is IDENTICAL to the concat path (last input channel = time), so

@@ -61,10 +61,7 @@ class NeuralODE(Module):
         saveat: Optional[Any] = None,
         adjoint: str = "stored",
         solver: str = "tsit5",
-        use_pallas: bool = False,
-        use_persistent: bool = True,
         precision: str = "auto",
-        grad_precision: str = "match",
         compute_dtype: Optional[str] = None,
         knot_window: Optional[int] = None,
     ):
@@ -90,61 +87,16 @@ class NeuralODE(Module):
         self.saveat = None if saveat is None else jnp.asarray(saveat)
         self.adjoint = adjoint
         self.solver = solver
-        self.use_pallas = use_pallas
-        self.use_persistent = use_persistent
         # stored-adjoint dense-knot capacity (default 512 in
         # ode/stored_adjoint.py); solves beyond it use windowed replay
         self.knot_window = None if knot_window is None else int(knot_window)
-        # MXU input precision for all dynamics-path matmuls: at tight
-        # tolerances TPU DEFAULT (one bf16 pass) floods the embedded error
-        # estimate with rounding noise and the solver can never accept a
-        # step (see nn.resolve_solver_precision).
+        # matmul input precision for all dynamics-path matmuls: at tight
+        # tolerances a reduced-precision matmul (TF32 on the GPU) floods
+        # the embedded error estimate with rounding noise (see
+        # nn.resolve_solver_precision).
         from ..nn.basic import resolve_solver_precision
 
         self.mm_precision = resolve_solver_precision(precision, self.rtol)
-        # backward recompute/cotangent precision: the stored-adjoint
-        # backward re-evaluates stage matmuls only to serve GRADIENTS (the
-        # controller's accept/dt decisions were fixed in the forward), so
-        # 'default' legally trades ~1e-3-relative gradient noise for the
-        # one-pass MXU rate — a ~2x backward win at 'highest'. Two-level
-        # windowed replay is exempt (it re-runs the adaptive loop and must
-        # track the forward's decisions bitwise).
-        if grad_precision not in ("match", "default"):
-            raise ValueError(
-                f"grad_precision must be 'match' or 'default', got "
-                f"{grad_precision!r}"
-            )
-        self.bwd_precision = (
-            self.mm_precision if grad_precision == "match" else None
-        )
-        if use_pallas and self.mm_precision == "high":
-            # Mosaic has no dot_general lowering for Precision.HIGH (3-pass
-            # bf16) — only DEFAULT and HIGHEST. The generic XLA path
-            # supports 'high' everywhere, so decline the Pallas families.
-            use_pallas = False
-            self.use_pallas = False
-        if (
-            grad_precision == "default"
-            and self.mm_precision is not None
-            and not use_pallas
-        ):
-            # the knob is only honored by the fused Pallas backward
-            # families (step-vjp + persistent sweeps, recompute_precision);
-            # the generic XLA-twin backward is autodiff's transpose of the
-            # forward and runs every dot at the forward's precision. Warn
-            # instead of silently no-opping (round-4 verdict Weak #4).
-            # (When mm_precision is None, 'default' == 'match' and the
-            # no-op is semantically exact — no warning.)
-            import warnings
-
-            warnings.warn(
-                "solver.grad_precision='default' has no effect with "
-                "use_pallas=False: the generic XLA backward runs at the "
-                "forward's matmul precision "
-                f"({self.mm_precision!r}). Only the fused Pallas backward "
-                "families honor the knob.",
-                stacklevel=2,
-            )
         # optional low-precision DYNAMICS compute (bandwidth lever for the
         # conv family): u and params are cast to this dtype inside the
         # dynamics only; du is upcast back, so all solver math (error
@@ -164,49 +116,6 @@ class NeuralODE(Module):
                 "tolerance precision='highest' (rtol < 1e-4): the bf16 "
                 "dynamics noise would swamp the error estimate"
             )
-        if self.compute_dtype is not None and use_pallas:
-            raise ValueError(
-                "compute_dtype='bfloat16' is not supported by the fused "
-                "Pallas TD-MLP kernels (f32 VMEM pipeline)"
-            )
-        self._pallas_family = None
-        self._conv_spec = None
-        if use_pallas:
-            from ..models.common import TDChain
-            from ..nn.basic import Dense
-            from ..ops.pallas.fused_conv import match_conv_family
-
-            layers = list(getattr(model, "layers", {}).values())
-            if (
-                isinstance(model, TDChain)
-                and len(layers) == 2
-                and all(isinstance(l, Dense) for l in layers)
-            ):
-                self._pallas_family = "mlp"
-            else:
-                spec = match_conv_family(model)
-                if spec is not None:
-                    self._pallas_family = "conv"
-                    self._conv_spec = spec
-                else:
-                    from ..ops.pallas.fused_solve import match_dense_chain
-
-                    cinfo = match_dense_chain(model)
-                    if cinfo is not None:
-                        # autonomous Dense chain (the latent-ODE gen
-                        # dynamics): served by the persistent solve/sweep
-                        # kernels only — per-step solves use the generic
-                        # XLA step (one fused step buys nothing there)
-                        self._pallas_family = "chain"
-                        self._chain_info = cinfo
-            if self._pallas_family is None:
-                raise ValueError(
-                    "use_pallas=True requires a TDChain of two Dense layers "
-                    "(fused TD-MLP family), the conv dynamics family "
-                    "(Conv+BN ×2 → Conv, see ops/pallas/fused_conv.py), or "
-                    "an autonomous Dense chain (latent gen-dynamics family, "
-                    "see ops/pallas/fused_solve.py::match_dense_chain)"
-                )
 
     def init(self, key):
         mkey, skey = jax.random.split(key)
@@ -222,16 +131,6 @@ class NeuralODE(Module):
 
     # -- dynamics: wrap the inner model as stateful f(u, t, p, st) -> (du, st)
     def _dynamics(self, training: bool):
-        if self.use_pallas and self._pallas_family == "mlp":
-            from ..ops.pallas.fused_mlp import get_fused_tdmlp
-
-            fused = get_fused_tdmlp(self.mm_precision)
-
-            def f(u, t, p, st):
-                return fused(p["model"], u, t), st
-
-            return f
-
         prec = self.mm_precision
         cdt = self.compute_dtype
 
@@ -264,239 +163,8 @@ class NeuralODE(Module):
 
         return f
 
-    def _step_fn(self, training: bool = True):
-        """Fused Pallas Tsit5 step (same contract as the generic step)."""
-        if not self.use_pallas:
-            return None
-        if self._pallas_family == "chain":
-            return None  # persistent kernels only; XLA loop uses generic steps
-        if self._pallas_family == "conv":
-            if not hasattr(self, "_conv_steps"):
-                self._conv_steps = {}
-            if training not in self._conv_steps:
-                from ..ops.pallas.fused_conv import make_fused_conv_step
-
-                base = make_fused_conv_step(
-                    self.model, self._conv_spec, self.mm_precision
-                )
-                self._conv_steps[training] = (
-                    lambda fn, u, t, dt, k1, p, f_st, _b=base,
-                    _tr=training: _b(
-                        fn, u, t, dt, k1, p, f_st, training=_tr
-                    )
-                )
-            return self._conv_steps[training]
-        from ..ode.step import Tsit5StepResult
-        from ..ops.pallas.fused_mlp import get_fused_tsit5_step
-
-        fused_step = get_fused_tsit5_step(self.mm_precision)
-
-        def step(fn, u, t, dt, k1, p, f_st):
-            u_new, utilde, k2, k3, k4, k5, k6, k7, g6 = fused_step(
-                p["model"], u, t, dt, k1
-            )
-            return Tsit5StepResult(
-                u_new, utilde, (k1, k2, k3, k4, k5, k6, k7), g6, f_st
-            )
-
-        return step
-
-    def _step_vjp(self):
-        """Direct hand-fused backward for the stored-adjoint sweep (skips
-        jax.vjp's dead primal recompute per step)."""
-        if not self.use_pallas:
-            return None
-        if self._pallas_family == "chain":
-            return None
-        if self._pallas_family == "conv":
-            from ..ops.pallas.fused_conv_bwd import fused_conv_step_bwd
-
-            spec = self._conv_spec
-            prec = self.bwd_precision
-
-            def conv_step_vjp(p, u, t, dt, k1, d_unew, d_ks):
-                zero = jnp.zeros_like(u)
-                cts = (d_unew, zero) + tuple(d_ks) + (zero,)
-                d_pm, d_u, d_k1 = fused_conv_step_bwd(
-                    spec, p["model"], u, t, dt, k1, cts, precision=prec
-                )
-                return {"model": d_pm}, d_u, d_k1
-
-            return conv_step_vjp
-        from ..ops.pallas.fused_mlp_bwd import fused_step_bwd
-
-        # recompute dots at bwd_precision (= mm_precision, or None under
-        # grad_precision='default'): stage recompute here serves gradients
-        # only — the step was already accepted in the forward
-        prec = self.bwd_precision
-
-        def step_vjp(p, u, t, dt, k1, d_unew, d_ks):
-            zero = jnp.zeros_like(u)
-            cts = (d_unew, zero) + tuple(d_ks) + (zero,)  # utilde, g6 cts = 0
-            d_pm, d_u, _dt, _ddt, d_k1 = fused_step_bwd(
-                p["model"], u, t, dt, k1, cts, prec, grad_precision=None
-            )
-            return {"model": d_pm}, d_u, d_k1
-
-        return step_vjp
-
-    def _persistent_fn(self):
-        """Whole-solve persistent Pallas kernel (fused_solve.py): used for
-        non-differentiated solves of the fused TD-MLP family — inference
-        and the fenced primal of the stored adjoint. Declines (returns
-        None) when the VMEM plan doesn't fit, falling back to the XLA
-        loop."""
-        if not (
-            self.use_pallas and self.use_persistent
-            and self._pallas_family in ("mlp", "chain")
-        ):
-            return None
-        from ..ode.solve import ODESolution
-        from ..ops.pallas.fused_solve import (
-            persistent_chain_solve,
-            persistent_tsit5_solve,
-        )
-
-        prec = self.mm_precision
-        family = self._pallas_family
-        chain_info = getattr(self, "_chain_info", None)
-
-        def pf(u0, tspan, p, *, saveat_arr, rtol, atol, max_steps,
-               record_knots, knot_dense_cap, reservoir_key, dt0, f_state,
-               knot_stride=1, plan_only=False):
-            if record_knots:
-                # the persistent forward records PADDED knots, which only
-                # the persistent sweep can consume — decline when the
-                # sweep can't run so the XLA loop records unpadded knots
-                # for the XLA fallback sweep. Two-level (stride > 1)
-                # additionally requires the windowed-replay sweep plan.
-                from ..ops.pallas.fused_solve_bwd import (
-                    chain_sweep_feasible,
-                    sweep_feasible,
-                )
-
-                if family == "mlp":
-                    ok = sweep_feasible(
-                        p["model"], u0.shape[0], u0.shape[1],
-                        int(saveat_arr.shape[0]),
-                        two_level=knot_stride > 1,
-                        use_reservoir=reservoir_key is not None,
-                    )
-                else:
-                    ok = chain_sweep_feasible(
-                        chain_info, u0.shape[0],
-                        int(saveat_arr.shape[0]),
-                        two_level=knot_stride > 1,
-                        use_reservoir=reservoir_key is not None,
-                    )
-                if not ok:
-                    return None
-            if family == "mlp":
-                out = persistent_tsit5_solve(
-                    p["model"], u0, tspan, rtol=rtol, atol=atol,
-                    saveat_arr=saveat_arr, max_steps=max_steps,
-                    record_knots=record_knots,
-                    knot_dense_cap=knot_dense_cap,
-                    knot_stride=knot_stride,
-                    # the persistent sweep recomputes k1 in-kernel; skip
-                    # the dense k-stream (halves per-accept DMA traffic)
-                    record_ks=False,
-                    reservoir_key=reservoir_key, precision=prec, dt0=dt0,
-                    plan_only=plan_only,
-                )
-            else:
-                out = persistent_chain_solve(
-                    p["model"], chain_info, u0, tspan, rtol=rtol,
-                    atol=atol, saveat_arr=saveat_arr, max_steps=max_steps,
-                    record_knots=record_knots,
-                    knot_dense_cap=knot_dense_cap,
-                    knot_stride=knot_stride, record_ks=False,
-                    reservoir_key=reservoir_key, precision=prec, dt0=dt0,
-                    plan_only=plan_only,
-                )
-            if out is None or plan_only:
-                return out
-            # the fused family is stateless: threading f_state through the
-            # trajectory is the identity
-            return ODESolution(
-                ts=saveat_arr, ys=out["ys"], t_final=out["t_final"],
-                y_final=out["y_final"], nfe=out["nfe"],
-                naccept=out["naccept"], nreject=out["nreject"],
-                success=out["success"], reservoir_t=out["reservoir_t"],
-                reservoir_u=out["reservoir_u"], f_state=f_state,
-                knot_ts=out["knot_ts"], knot_us=out["knot_us"],
-                knot_ks=out["knot_ks"], ckpt_ts=out["ckpt_ts"],
-                ckpt_us=out["ckpt_us"], ckpt_ks=out["ckpt_ks"],
-                ckpt_dts=out["ckpt_dts"], ckpt_qolds=out["ckpt_qolds"],
-            )
-
-        return pf
-
-    def _sweep_fn(self):
-        """Whole-sweep persistent backward kernel (fused_solve_bwd.py) for
-        the stored adjoint's dense regime. Declines (None) when the VMEM
-        plan doesn't fit or n_save is large."""
-        if not (
-            self.use_pallas and self.use_persistent
-            and self._pallas_family in ("mlp", "chain")
-        ):
-            return None
-        from jax.flatten_util import ravel_pytree
-
-        from ..ops.pallas.fused_solve_bwd import (
-            persistent_chain_sweep,
-            persistent_stored_sweep,
-            persistent_two_level_sweep,
-        )
-
-        prec = self.mm_precision
-        bwd_prec = self.bwd_precision
-        family = self._pallas_family
-        chain_info = getattr(self, "_chain_info", None)
-
-        def sweep(p, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y,
-                  two_level_ctx=None):
-            # `precision` drives the two-level window REPLAY (must track
-            # the forward's accept decisions bitwise); `recompute_precision`
-            # drives the per-step stage recompute, which serves gradients
-            # only — bwd_prec (= None under grad_precision='default')
-            # applies there in both dense and two-level modes.
-            if family == "chain":
-                res = persistent_chain_sweep(
-                    p["model"], chain_info, knot_ts, knot_us, naccept,
-                    saveat_arr, ct_ys, ct_y, two_level_ctx=two_level_ctx,
-                    precision=prec, grad_precision=None,
-                    recompute_precision=bwd_prec,
-                )
-            elif two_level_ctx is None:
-                res = persistent_stored_sweep(
-                    p["model"], knot_ts, knot_us, naccept, saveat_arr,
-                    ct_ys, ct_y, precision=prec, grad_precision=None,
-                    recompute_precision=bwd_prec,
-                )
-            else:
-                c = two_level_ctx
-                res = persistent_two_level_sweep(
-                    p["model"], knot_ts, knot_us, naccept, saveat_arr,
-                    ct_ys, ct_y, c["ckpt_ts"], c["ckpt_us"], c["ckpt_ks"],
-                    c["ckpt_dts"], c["ckpt_qolds"], t_end=c["t_end"],
-                    rtol=c["rtol"], atol=c["atol"],
-                    max_steps=c["max_steps"], stride=c["stride"],
-                    dense_cap=c["dense_cap"],
-                    use_reservoir=c["use_reservoir"],
-                    precision=prec, grad_precision=None,
-                    recompute_precision=bwd_prec,
-                )
-            if res is None:
-                return None
-            a_u, a_k, d_pm = res
-            a_p, _ = ravel_pytree({"model": d_pm})
-            return a_u, a_k, a_p
-
-        return sweep
-
     def _solve_main(self, f, x, params, model_state, *, saveat, adjoint,
-                    reservoir_key=None, training=True):
+                    reservoir_key=None):
         """Main solve, dispatching on the configured solver. The reg step is
         always Tsit5 regardless (reference neural_ode.jl:75)."""
         if self.solver == "tsit5":
@@ -507,10 +175,6 @@ class NeuralODE(Module):
                 checkpoint_every=self.checkpoint_every,
                 adjoint=adjoint, stateful=True, f_state=model_state,
                 reservoir_key=reservoir_key,
-                step_fn=self._step_fn(training),
-                step_vjp=self._step_vjp(),
-                persistent_fn=self._persistent_fn(),
-                sweep_fn=self._sweep_fn(),
                 knot_window=self.knot_window,
             )
         from ..ode.multistep import adams_solve
@@ -538,7 +202,6 @@ class NeuralODE(Module):
             sol = self._solve_main(
                 f, x, params, state["model"], saveat=self.saveat,
                 adjoint=self.adjoint if training else "none",
-                training=training,
             )
             new_state = {
                 "model": sol.f_state,
@@ -567,7 +230,7 @@ class NeuralODE(Module):
             saveat_int = jnp.concatenate([user_saveat, t1[None]])
             sol = self._solve_main(
                 f, x, params, state["model"], saveat=saveat_int,
-                adjoint=self.adjoint, training=True,
+                adjoint=self.adjoint,
             )
             u1 = lax.stop_gradient(sol.ys[-1])
             # strip the injected t1 slot from the user-visible outputs
@@ -575,7 +238,7 @@ class NeuralODE(Module):
         else:  # biased
             sol = self._solve_main(
                 f, x, params, state["model"], saveat=self.saveat,
-                adjoint=self.adjoint, reservoir_key=rkey, training=True,
+                adjoint=self.adjoint, reservoir_key=rkey,
             )
             t1 = sol.reservoir_t
             u1 = lax.stop_gradient(sol.reservoir_u)
@@ -591,11 +254,7 @@ class NeuralODE(Module):
         dt_r = lax.stop_gradient(
             jnp.minimum(dt_r, jnp.asarray(t2, jnp.float32) - t1)
         )
-        custom_step = self._step_fn(True)
-        if custom_step is None:
-            step = tsit5_step(f, u1, t1, dt_r, k1, params, sol.f_state)
-        else:
-            step = custom_step(f, u1, t1, dt_r, k1, params, sol.f_state)
+        step = tsit5_step(f, u1, t1, dt_r, k1, params, sol.f_state)
         reg_val = regularization_value(
             self.regularize_type, step, u1, dt_r, self.atol, self.rtol
         )

@@ -59,9 +59,6 @@ class NeuralDSDE(Module):
         delta: float = 1 / 6,
         noise_dims: Optional[int] = None,
         precision: str = "auto",
-        grad_precision: str = "match",
-        use_pallas: bool = False,
-        use_persistent: bool = True,
     ):
         if isinstance(regularize, bool):
             regularize = "unbiased" if regularize else "none"
@@ -94,139 +91,9 @@ class NeuralDSDE(Module):
         self.solver = solver
         self.delta = float(delta)
         self.noise_dims = None if noise_dims is None else int(noise_dims)
-        self.use_pallas = use_pallas
-        self.use_persistent = use_persistent
         from ..nn.basic import resolve_solver_precision
 
         self.mm_precision = resolve_solver_precision(precision, self.rtol)
-        # accepted for config parity with NeuralODE, but the SDE backward
-        # has no reduced-precision stage-recompute path: its persistent
-        # sweep always recomputes stages at the forward precision (and
-        # cotangent/weight-grad dots already run one-pass). Warn rather
-        # than silently no-op (round-4 verdict Weak #4 / ADVICE r4).
-        if grad_precision not in ("match", "default"):
-            raise ValueError(
-                f"grad_precision must be 'match' or 'default', got "
-                f"{grad_precision!r}"
-            )
-        if grad_precision == "default" and self.mm_precision is not None:
-            import warnings
-
-            warnings.warn(
-                "solver.grad_precision='default' has no effect on the "
-                "NeuralDSDE family: its backward stage recompute always "
-                "runs at the forward's matmul precision "
-                f"({self.mm_precision!r}).",
-                stacklevel=2,
-            )
-        if self.mm_precision == "high":
-            # Mosaic has no dot_general lowering for Precision.HIGH —
-            # decline the persistent Pallas SDE kernel (XLA supports it).
-            self.use_pallas = False
-
-    def _is_fused_family(self):
-        """Structural check for the kernel's architecture: drift =
-        Chain(Dense(F,H,tanh), Dense(H,F)), diffusion = Dense(F,F) —
-        parameter SHAPES alone can't distinguish activations. Pure-Python
-        identity checks only (this runs inside traced contexts)."""
-        import jax.numpy as _jnp
-
-        from ..nn.basic import _ACTIVATIONS
-        from ..nn.basic import Chain as _Chain
-        from ..nn.basic import Dense as _Dense
-
-        d, g = self.drift, self.diffusion
-        if not (isinstance(d, _Chain) and len(d.layers) == 2):
-            return False
-        l0, l1 = list(d.layers.values())
-        if not all(isinstance(x, _Dense) for x in (l0, l1, g)):
-            return False
-        if not (l0.use_bias and l1.use_bias and g.use_bias):
-            return False
-        if l0.activation is not _jnp.tanh:
-            return False
-        # output layers must be affine (identity activation)
-        ident = (_ACTIVATIONS[None], _ACTIVATIONS["identity"])
-        for lyr in (l1, g):
-            if not any(lyr.activation is f for f in ident):
-                return False
-        return True
-
-    def _persistent_fn(self):
-        """Whole-solve persistent SDE kernel (fused_sde_solve.py): serves
-        non-differentiated solves of the plain-MLP drift + Dense diffusion
-        family (construct.jl:202-210). The kernel generates its own
-        Brownian noise (TPU PRNG — different realization, same law) and
-        records (u, dW, dZ) knots; the stored backward consumes the
-        records, so gradients are exact for the realized trajectory."""
-        if not (
-            self.use_pallas and self.use_persistent
-            and self.solver in ("sri", "sosri")
-            and self.noise_dims is None
-            and self._is_fused_family()
-        ):
-            return None
-        from ..ops.pallas.fused_sde_solve import persistent_sde_solve
-        from ..sde.solve import SDESolution
-
-        prec = self.mm_precision
-
-        def pf(u0, tspan, p, *, noise_key, saveat_arr, rtol, atol, solver,
-               delta, max_steps, record_knots, reservoir_key,
-               brownian_depth, dt0, f_state, g_state):
-            out = persistent_sde_solve(
-                p, u0, tspan, noise_key=noise_key, rtol=rtol, atol=atol,
-                solver=solver, delta=delta, saveat_arr=saveat_arr,
-                max_steps=max_steps, record_knots=record_knots,
-                reservoir_key=reservoir_key, brownian_depth=brownian_depth,
-                precision=prec, dt0=dt0,
-            )
-            if out is None:
-                return None
-            # the fused family is stateless (Dense layers): threading
-            # f/g state through the trajectory is the identity
-            return SDESolution(
-                ts=saveat_arr, ys=out["ys"], t_final=out["t_final"],
-                y_final=out["y_final"], nfe_drift=out["nfe_drift"],
-                nfe_diffusion=out["nfe_diffusion"],
-                naccept=out["naccept"], nreject=out["nreject"],
-                success=out["success"], reservoir_t=out["reservoir_t"],
-                reservoir_u=out["reservoir_u"], f_state=f_state,
-                g_state=g_state, knot_ts=out["knot_ts"],
-                knot_us=out["knot_us"], knot_dws=out["knot_dws"],
-                knot_dzs=out["knot_dzs"],
-            )
-
-        return pf
-
-    def _persistent_sweep_fn(self):
-        """Whole-sweep persistent SDE backward (fused_sde_sweep.py): the
-        stored adjoint's reverse transposition of every recorded step in
-        one TPU program (same gating as the forward kernel; the recorded
-        (dW, dZ) make the transpose forward-agnostic, so it also serves
-        XLA-loop forwards when the knot layout is lane-aligned)."""
-        if not (
-            self.use_pallas and self.use_persistent
-            and self.solver in ("sri", "sosri")
-            and self.noise_dims is None
-            and self._is_fused_family()
-        ):
-            return None
-        from ..ops.pallas.fused_sde_sweep import persistent_sde_sweep
-
-        prec = self.mm_precision
-        delta = self.delta
-        solver = self.solver
-
-        def psf(p, knot_ts, knot_us, knot_dws, knot_dzs, naccept,
-                saveat_arr, ct_ys, ct_y):
-            return persistent_sde_sweep(
-                p, knot_ts, knot_us, knot_dws, knot_dzs, naccept,
-                saveat_arr, ct_ys, ct_y, solver=solver, delta=delta,
-                precision=prec, grad_precision=None,
-            )
-
-        return psf
 
     def init(self, key):
         dk, gk, sk = jax.random.split(key, 3)
@@ -292,8 +159,6 @@ class NeuralDSDE(Module):
             f_state=state["drift"],
             g_state=state["diffusion"],
             noise_shape=noise_shape,
-            persistent_fn=self._persistent_fn(),
-            persistent_sweep_fn=self._persistent_sweep_fn(),
         )
 
         if mode == "none":

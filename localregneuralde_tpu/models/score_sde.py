@@ -66,7 +66,6 @@ def sample_vpsde(
     solver: str = "sri",
     max_steps: int = 256,
     score_module=None,
-    use_pallas: bool = True,
 ):
     """Draw samples by integrating the reverse-time VP-SDE adaptively.
 
@@ -77,15 +76,8 @@ def sample_vpsde(
     ``du = f̄ dt + g dW̄`` with dt < 0, substituting τ gives
     ``du = −f̄(u, t1−τ) dτ + g(t1−τ) dWτ`` on τ ∈ [0, t1−t0].
 
-    With ``score_module`` given (a TDChain-of-Dense score net whose params
-    are ``p``), SRI/SOSRI sampling runs on the persistent whole-solve
-    Pallas kernel (``ops/pallas/fused_sde_solve.py``, 'vpsde' family) —
-    score-net stage evaluations, β(t) scaling, and the in-kernel Brownian
-    tree all in one TPU program (a different noise realization than the
-    XLA path's threefry tree, same law) — falling back to the XLA loop
-    when the module/config isn't servable or ``use_pallas=False``.
-    ``score_fn`` must then be None — the XLA-fallback drift is built from
-    the SAME module, so both paths sample the same score.
+    Pass exactly one of ``score_fn`` or ``score_module`` (a stateless
+    score network whose raw params are ``p``).
     """
     sde = sde or VPSDE()
     key_init, key_noise = jax.random.split(key)
@@ -105,31 +97,20 @@ def sample_vpsde(
         t = t1 - tau
         return jnp.sqrt(sde.beta(t)) * jnp.ones_like(u)
 
-    persistent_fn = None
-    if score_module is not None and use_pallas:
-        persistent_fn = _vpsde_persistent_fn(score_module, sde, t1)
-
     sol = sdesolve(
         drift, diffusion, u_init, (0.0, t1 - t0), p,
         noise_key=key_noise, rtol=rtol, atol=atol, solver=solver,
-        max_steps=max_steps, adjoint="none", persistent_fn=persistent_fn,
+        max_steps=max_steps, adjoint="none",
     )
     return sol.y_final, sol
 
 
 def _resolve_score_fn(score_fn, score_module):
     """Single source of truth for the score: exactly one of ``score_fn``
-    / ``score_module``. With a module, every path (persistent kernel AND
-    XLA fallback) evaluates that module; a user score_fn alongside it
-    could disagree with the kernel's module evaluation with no warning."""
+    / ``score_module``."""
     if score_module is not None:
         if score_fn is not None:
-            raise ValueError(
-                "pass exactly one of score_fn / score_module: with "
-                "score_module the XLA fallback uses the module too, so a "
-                "separate score_fn could silently diverge from the "
-                "persistent-kernel path"
-            )
+            raise ValueError("pass exactly one of score_fn / score_module")
         return _raw_module_score_fn(score_module)
     if score_fn is None:
         raise ValueError("pass score_fn or score_module")
@@ -149,47 +130,6 @@ def _raw_module_score_fn(module):
     return score
 
 
-def _vpsde_persistent_fn(score_module, sde: VPSDE, t1: float):
-    """Persistent-kernel dispatch for ``sample_vpsde``: match the score
-    module to the 'vpsde' kernel family; None (→ the XLA loop) on
-    mismatch. Sampling is never differentiated nor reservoir-sampled, so
-    the wrapper declines those requests."""
-    from ..ops.pallas.fused_sde_solve import (
-        match_td_score_chain,
-        persistent_vpsde_solve,
-    )
-    from ..sde.solve import SDESolution
-
-    info = match_td_score_chain(score_module)
-    if info is None:
-        return None
-
-    def pf(u0, tspan, p, *, noise_key, saveat_arr, rtol, atol, solver,
-           delta, max_steps, record_knots, reservoir_key, brownian_depth,
-           dt0, f_state, g_state):
-        if record_knots or reservoir_key is not None:
-            return None
-        out = persistent_vpsde_solve(
-            p, info, u0, tspan, noise_key=noise_key, rtol=rtol, atol=atol,
-            solver=solver, delta=delta, saveat_arr=saveat_arr,
-            max_steps=max_steps, beta_min=sde.beta_min,
-            beta_max=sde.beta_max, t1=t1, brownian_depth=brownian_depth,
-            dt0=dt0,
-        )
-        if out is None:
-            return None
-        return SDESolution(
-            ts=saveat_arr, ys=out["ys"], t_final=out["t_final"],
-            y_final=out["y_final"], nfe_drift=out["nfe_drift"],
-            nfe_diffusion=out["nfe_diffusion"], naccept=out["naccept"],
-            nreject=out["nreject"], success=out["success"],
-            reservoir_t=jnp.asarray(tspan[0], jnp.float32),
-            reservoir_u=u0, f_state=f_state, g_state=g_state,
-        )
-
-    return pf
-
-
 def sample_probability_flow(
     score_fn: Optional[Callable],
     shape,
@@ -203,16 +143,12 @@ def sample_probability_flow(
     atol: float = 1e-6,
     max_steps: int = 256,
     score_module=None,
-    use_pallas: bool = True,
 ):
     """Deterministic probability-flow ODE sampler (adaptive Tsit5):
     du/dt = −½β(t)(u + s_θ(u, t)) integrated from t1 down to t0.
 
-    With ``score_module`` given (a TDChain-of-Dense score net whose params
-    are ``p``), the whole adaptive Tsit5 solve runs on the persistent
-    Pallas kernel (``ops/pallas/fused_solve.py``, 'pfode' family). Unlike
-    the SDE sampler there is no noise realization: the kernel and the XLA
-    loop integrate the same ODE and agree to solver accuracy."""
+    Pass exactly one of ``score_fn`` or ``score_module`` (a stateless
+    score network whose raw params are ``p``)."""
     sde = sde or VPSDE()
     u_init = jax.random.normal(key, shape)
 
@@ -224,53 +160,11 @@ def sample_probability_flow(
         du_dt = -0.5 * b * (u + score_fn(u, t, p_))
         return -du_dt
 
-    persistent_fn = None
-    if score_module is not None and use_pallas:
-        persistent_fn = _pf_persistent_fn(score_module, sde, t1)
-
     sol = odesolve(
         dynamics, u_init, (0.0, t1 - t0), p,
         rtol=rtol, atol=atol, max_steps=max_steps, adjoint="none",
-        persistent_fn=persistent_fn,
     )
     return sol.y_final, sol
-
-
-def _pf_persistent_fn(score_module, sde: VPSDE, t1: float):
-    """Persistent-kernel dispatch for ``sample_probability_flow``: match
-    the score module to the 'pfode' Tsit5 kernel family; None (→ the XLA
-    loop) on mismatch. Sampling is never differentiated nor
-    reservoir-sampled, so the wrapper declines those requests."""
-    from ..ode.solve import ODESolution
-    from ..ops.pallas.fused_solve import persistent_pf_solve
-    from ..ops.pallas.fused_sde_solve import match_td_score_chain
-
-    info = match_td_score_chain(score_module)
-    if info is None:
-        return None
-
-    def pf(u0, tspan, p, *, saveat_arr, rtol, atol, max_steps,
-           record_knots, knot_dense_cap, reservoir_key, dt0, f_state,
-           knot_stride=1, plan_only=False):
-        if record_knots or reservoir_key is not None:
-            return None
-        out = persistent_pf_solve(
-            p, info, u0, tspan, rtol=rtol, atol=atol,
-            saveat_arr=saveat_arr, max_steps=max_steps,
-            beta_min=sde.beta_min, beta_max=sde.beta_max, t1=t1,
-            dt0=dt0, plan_only=plan_only,
-        )
-        if out is None or plan_only:
-            return out
-        return ODESolution(
-            ts=saveat_arr, ys=out["ys"], t_final=out["t_final"],
-            y_final=out["y_final"], nfe=out["nfe"],
-            naccept=out["naccept"], nreject=out["nreject"],
-            success=out["success"], reservoir_t=None, reservoir_u=None,
-            f_state=f_state,
-        )
-
-    return pf
 
 
 def gaussian_score_fn(mean=0.0, var=1.0, sde: Optional[VPSDE] = None):

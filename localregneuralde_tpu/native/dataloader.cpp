@@ -1,6 +1,6 @@
 // Native prefetching batch loader.
 //
-// TPU-native equivalent of the reference's threaded host data pipeline
+// Equivalent of the reference's threaded host data pipeline
 // (MLUtils.eachobsparallel with a FLoops ThreadedEx executor and a buffered
 // channel, reference experiments/src/utils.jl:155-166): worker threads gather
 // shuffled rows from pinned host arrays into batch buffers feeding a bounded

@@ -1,14 +1,17 @@
 """ctypes bindings for the native prefetching batch loader.
 
-The shared library is built on first use with g++ (no pybind11 in the
-environment; plain C ABI + ctypes per the task constraints) and cached next
-to this file. ``NativeDataloader`` mirrors the Python ``harness.Dataloader``
+The shared library is built on first use with g++ (plain C ABI +
+ctypes) into ``build/<hash>/`` next to this file, where ``<hash>`` is the
+SHA-256 of ``dataloader.cpp``: a library is reused only when it was built
+from exactly this source, never because of a file's timestamp.
+``NativeDataloader`` mirrors the Python ``harness.Dataloader``
 iterator contract; callers can fall back transparently when no toolchain is
 available (``native_available()``).
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -19,24 +22,37 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "dataloader.cpp")
-_SO = os.path.join(_HERE, "libnativeloader.so")
 _lib = None
 _lock = threading.Lock()
 
 
+def library_path(src: str = _SRC) -> str:
+    """Where the library built from ``src`` lives: a build directory
+    named after the source's SHA-256."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_HERE, "build", digest, "libnativeloader.so")
+
+
 def _build() -> Optional[str]:
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-        return _SO
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    # build under a per-process name, then rename: a concurrent builder
+    # never loads a half-written library
+    tmp = f"{so}.{os.getpid()}.tmp"
     try:
         subprocess.run(
             [
                 "g++", "-O3", "-fPIC", "-shared", "-std=c++17", _SRC,
-                "-o", _SO, "-lpthread",
+                "-o", tmp, "-lpthread",
             ],
             check=True,
             capture_output=True,
         )
-        return _SO
+        os.replace(tmp, so)
+        return so
     except (OSError, subprocess.CalledProcessError) as e:
         warnings.warn(f"native loader build failed: {e}")
         return None

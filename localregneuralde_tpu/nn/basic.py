@@ -1,8 +1,8 @@
 """Basic layers: Dense, Conv, BatchNorm, Flatten, WrappedFunction, Chain.
 
-TPU-first data layout: batch-major everywhere — matrices are ``(B, F)`` and
-images are NHWC ``(B, H, W, C)`` — so matmuls and convolutions map directly
-onto the MXU with XLA's preferred layouts. (The reference, being Julia, is
+Data layout: batch-major everywhere — matrices are ``(B, F)`` and images
+are NHWC ``(B, H, W, C)`` — so matmuls and convolutions map directly onto
+XLA's preferred layouts (and cuDNN's NHWC convolutions on the GPU). (The reference, being Julia, is
 feature-major ``(F, B)`` / WHCN; the mapping is documented per layer.)
 """
 from __future__ import annotations
@@ -39,25 +39,21 @@ def resolve_activation(act) -> Callable:
 def resolve_solver_precision(precision, rtol: float):
     """Matmul input precision for solver-path layers.
 
-    On TPU, f32 matmuls at Precision.DEFAULT truncate inputs to bf16 (one
-    MXU pass): the embedded error estimate ``ũ`` — a cancelling stage sum —
-    then carries ~1e-3-relative noise, and at tight tolerances acceptance
-    becomes *impossible*: the paper config (rtol 1.4e-8) saturates any
-    max_steps cap (measured: 60002 NFE capped vs 176 NFE exact). 'highest'
-    (6-pass bf16) restores f32-exact matmuls at ~3-6x matmul cost — a huge
-    net win when it cuts NFE by orders of magnitude.
+    On an NVIDIA GPU since Ampere, an f32 matmul at the default precision
+    runs on the tensor cores in TF32: its inputs keep 10 mantissa bits.
+    The embedded error estimate ``ũ`` is a cancelling sum of stage
+    derivatives, and that rounding lands on it in full. ``chip_smoke.py``
+    phase (c) measures it at the flagship width (B=512, 785→100→784) on an
+    H100 against float32 on the CPU: one Tsit5 step at the default
+    precision is off by 7.5e-5 relative in ``u_new`` and by 2.3e-4 of
+    dt·max‖k‖ in ``ũ`` (1e-7 and 3e-7 at 'highest'). At rtol 1e-4 that
+    noise costs 56 dynamics evaluations per solve against 26 at 'highest';
+    at the paper's rtol 1.4e-8 it costs 24,854 against 176, because the
+    controller keeps rejecting steps whose estimate is rounding noise.
+    'highest' runs the matmuls in full float32.
 
-    'auto': 'highest' iff rtol < 1e-4 (the measured safety line — round-1
-    studies at rtol 1e-4 under DEFAULT produced sane NFE), else None
-    (backend default).
-
-    Why not 'high' (3-pass bf16) at tight tolerances: measured at the
-    paper tolerance (rtol 1.4e-8, TPU, precision_ladder.json) it clears
-    the noise floor — the solve succeeds without saturating the cap —
-    but pays 3.9x NFE inflation (1946 vs 494 frozen-params evals), which
-    exceeds its per-eval savings: net train-step time 0.57x vs 'highest'.
-    Note Mosaic has no dot lowering for HIGH, so 'high' also declines the
-    Pallas families (models gate on this).
+    'auto': 'highest' iff rtol < 1e-4, else None (the backend default,
+    TF32 on the GPU). 'high' is accepted but no configuration uses it.
     """
     if precision == "auto":
         return "highest" if rtol < 1e-4 else None
@@ -174,8 +170,7 @@ class BatchNorm(Module):
         # opt-in escape hatch for BN-inside-ODE-dynamics models, where a
         # single running average cannot represent statistics that vary
         # along the trajectory and eval-mode flows diverge from the
-        # self-normalizing training flow (RESULTS.md round-4 diagnosis:
-        # 91% train / 14% eval on the unregularized conv baseline).
+        # self-normalizing training flow.
         self.eval_stats = eval_stats
 
     def init(self, key):

@@ -1,6 +1,6 @@
 """Recurrence: scan an RNN cell over the time axis.
 
-TPU-native counterpart of Lux's ``Recurrence`` used by the Latent-ODE encoder
+Counterpart of Lux's ``Recurrence`` used by the Latent-ODE encoder
 (reference: ``experiments/src/construct.jl:231``): a single ``lax.scan`` over
 the (static-length) observation grid — compiler-friendly sequential control
 flow, no Python loops.

@@ -4,7 +4,7 @@ The reference's default sensitivity algorithm is a continuous adjoint
 (``InterpolatingAdjoint(autojacvec=ZygoteVJP())``,
 ``src/layers/neural_ode.jl:11``): the backward pass integrates the adjoint
 ODE instead of storing the forward trajectory. This module provides the
-TPU-native analog as ``odesolve(..., adjoint='backsolve')``:
+analog as ``odesolve(..., adjoint='backsolve')``:
 
 - forward: the fast early-exit ``while_loop`` integrator (no taping);
 - backward: one augmented adaptive solve in reversed time carrying
@@ -44,7 +44,6 @@ def backsolve_odesolve(
     stateful: bool = False,
     f_state: Any = None,
     reservoir_key=None,
-    step_fn=None,
 ) -> ODESolution:
     """Adaptive Tsit5 solve whose VJP integrates the adjoint ODE backward."""
     t0, t_end = float(tspan[0]), float(tspan[1])
@@ -66,7 +65,7 @@ def backsolve_odesolve(
         # (stats, reservoir, threaded f_state) from one integration.
         return odesolve(
             f, u0_, (t0, t_end), p_, saveat=saveat_, adjoint="none",
-            step_fn=step_fn, stateful=stateful, f_state=f_state,
+            stateful=stateful, f_state=f_state,
             reservoir_key=reservoir_key, **solve_kwargs,
         )
 

@@ -1,6 +1,6 @@
 """PI step-size controller and initial-dt heuristic.
 
-TPU-native replacements for the controller machinery the reference delegates
+Replacements for the controller machinery the reference delegates
 to OrdinaryDiffEq (SURVEY.md §2d): pure XLA scalar ops, fully traceable, no
 data-dependent Python control flow. Controller parameters follow the standard
 defaults for a 5th-order explicit pair: gamma 9/10, qmin 1/5, qmax 10,

@@ -6,7 +6,7 @@ reading ``u(t)`` from the *stored forward solution's interpolant* instead of
 co-integrating it (as 'backsolve' does) — trading memory for the numerical
 stability backsolve lacks on stiff/contracting dynamics.
 
-TPU-native realization (``odesolve(..., adjoint='interpolating')``):
+Realization (``odesolve(..., adjoint='interpolating')``):
 
 - forward: the early-exit ``while_loop`` integrator, additionally recording
   ``(t, u, k1)`` at every accepted step into static ``max_steps`` buffers
@@ -49,7 +49,6 @@ def interpolating_odesolve(
     stateful: bool = False,
     f_state: Any = None,
     reservoir_key=None,
-    step_fn=None,
 ) -> ODESolution:
     """Adaptive Tsit5 solve whose VJP integrates the adjoint ODE against the
     stored forward interpolant."""
@@ -72,7 +71,7 @@ def interpolating_odesolve(
         # (stats, reservoir, threaded f_state, knots) from one integration.
         return odesolve(
             f, u0_, (t0, t_end), p_, saveat=saveat_, adjoint="none",
-            record_knots=True, step_fn=step_fn, stateful=stateful,
+            record_knots=True, stateful=stateful,
             f_state=f_state, reservoir_key=reservoir_key, **solve_kwargs,
         )
 

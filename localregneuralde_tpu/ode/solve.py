@@ -3,7 +3,7 @@
 This module owns everything the reference delegates to OrdinaryDiffEq
 (SURVEY.md §2d): the accept/reject stepping loop, PI step-size control, the
 automatic initial-dt heuristic, dense-output interpolation for ``saveat``,
-``maxiters`` bounding, and NFE statistics. The design is TPU-first:
+``maxiters`` bounding, and NFE statistics. The design:
 
 - **Adaptive control flow as data.** The loop body is a pure function of a
   carrier; finished/rejected iterations are masked no-ops. Under
@@ -134,14 +134,10 @@ def odesolve(
     stateful: bool = False,
     f_state: Any = None,
     reservoir_key: Optional[jnp.ndarray] = None,
-    step_fn: Optional[Callable] = None,
-    step_vjp: Optional[Callable] = None,
     record_knots: bool = False,
     knot_stride: int = 1,
     knot_dense_cap: Optional[int] = None,
     knot_window: Optional[int] = None,
-    persistent_fn: Optional[Callable] = None,
-    sweep_fn: Optional[Callable] = None,
 ) -> ODESolution:
     """Integrate ``du/dt = f(u, t, p)`` over ``tspan`` with adaptive Tsit5.
 
@@ -158,13 +154,6 @@ def odesolve(
         (early-exit while loop; not reverse-differentiable).
       reservoir_key: PRNG key enabling reservoir sampling of an accepted
         step-start point (for biased regularization).
-      step_fn: optional replacement for the generic Tsit5 step with the same
-        contract (e.g. a fused Pallas kernel, ``ops/pallas/fused_mlp.py``):
-        ``step_fn(f, u, t, dt, k1, p, f_state) -> Tsit5StepResult``.
-      persistent_fn: optional whole-solve replacement (the persistent-loop
-        Pallas kernel, ``ops/pallas/fused_solve.py``). Used for
-        non-differentiated solves in the dense-knot regime; may return None
-        to decline (VMEM plan infeasible), falling back to the XLA loop.
     """
     if adjoint == "stored":
         from .stored_adjoint import stored_odesolve
@@ -172,9 +161,7 @@ def odesolve(
         return stored_odesolve(
             f, u0, tspan, p, rtol=rtol, atol=atol, saveat=saveat,
             max_steps=max_steps, stateful=stateful, f_state=f_state,
-            reservoir_key=reservoir_key, step_fn=step_fn,
-            step_vjp=step_vjp, knot_window=knot_window,
-            persistent_fn=persistent_fn, sweep_fn=sweep_fn,
+            reservoir_key=reservoir_key, knot_window=knot_window,
         )
     if adjoint == "interpolating":
         from .interp_adjoint import interpolating_odesolve
@@ -182,7 +169,7 @@ def odesolve(
         return interpolating_odesolve(
             f, u0, tspan, p, rtol=rtol, atol=atol, saveat=saveat,
             max_steps=max_steps, stateful=stateful, f_state=f_state,
-            reservoir_key=reservoir_key, step_fn=step_fn,
+            reservoir_key=reservoir_key,
         )
     if adjoint == "backsolve":
         from .adjoint import backsolve_odesolve
@@ -190,12 +177,11 @@ def odesolve(
         return backsolve_odesolve(
             f, u0, tspan, p, rtol=rtol, atol=atol, saveat=saveat,
             max_steps=max_steps, stateful=stateful, f_state=f_state,
-            reservoir_key=reservoir_key, step_fn=step_fn,
+            reservoir_key=reservoir_key,
         )
     if controller is None:
         controller = PIController()
     fn = f if stateful else _wrap_stateless(f)
-    custom_step = step_fn  # the loop body below shadows the name `step_fn`
 
     t0, t_end = tspan
     dtype = jnp.result_type(u0.dtype, jnp.float32)
@@ -207,27 +193,6 @@ def odesolve(
     else:
         saveat_arr = jnp.atleast_1d(jnp.asarray(saveat, dtype))
     n_save = saveat_arr.shape[0]
-
-    # Persistent-loop Pallas path: the whole adaptive solve in one kernel.
-    # Only for non-differentiated solves (inference / the fenced primal of
-    # the stored adjoint). With knot_stride > 1 the kernel also records
-    # replayable checkpoints; the persistent backward sweep replays windows
-    # with the forward kernel's own tile code (fused_solve.py docstring) —
-    # the XLA fallback sweep never consumes persistent knots (gated by the
-    # caller via plan_only).
-    # Caveat (documented, accepted): on a FAILED solve (success=False) the
-    # kernel's speculative dense-output writes from rejected attempts can
-    # remain in `ys`, where this loop only commits accepted interpolations —
-    # consumers that ignore `success` may read different values there.
-    if persistent_fn is not None and adjoint == "none":
-        sol = persistent_fn(
-            u0, tspan, p, saveat_arr=saveat_arr, rtol=rtol, atol=atol,
-            max_steps=max_steps, record_knots=record_knots,
-            knot_dense_cap=knot_dense_cap, knot_stride=knot_stride,
-            reservoir_key=reservoir_key, dt0=dt0, f_state=f_state,
-        )
-        if sol is not None:
-            return sol
 
     k1_0, f_st0 = fn(u0, t0, p, f_state)
     nfe0 = jnp.asarray(1, jnp.int32)
@@ -307,10 +272,7 @@ def odesolve(
         dt_c = jnp.where(s.done, jnp.ones_like(s.dt), jnp.minimum(s.dt, t_rem))
         is_last = s.dt >= t_rem
 
-        if custom_step is None:
-            res = tsit5_step(fn, s.u, s.t, dt_c, s.k1, p, s.f_st)
-        else:
-            res = custom_step(fn, s.u, s.t, dt_c, s.k1, p, s.f_st)
+        res = tsit5_step(fn, s.u, s.t, dt_c, s.k1, p, s.f_st)
         eest = scaled_error_norm(res.utilde, s.u, res.u_new, atol, rtol)
         eest_c = lax.stop_gradient(eest)
         accept = eest_c <= 1.0
@@ -449,9 +411,8 @@ def odesolve(
 
         if checkpoint_every <= 0:
             # no remat: scan reverse stores per-step residuals
-            # (~(2+n_save)·state each). With the fused Pallas step — whose
-            # custom VJP recomputes its own forward — this avoids a fully
-            # redundant forward recompute per chunk. Memory: O(max_steps·state).
+            # (~(2+n_save)·state each), avoiding a forward recompute per
+            # chunk. Memory: O(max_steps·state).
             def body(s, _):
                 return masked_step(s), None
 

@@ -82,12 +82,12 @@ def regularization_value(
         k7, k6 = step.ks[6], step.ks[5]
         # dtype-dependent epsilon like the reference's eps(eltype(u))
         # (perform_step.jl:45) — under x64/non-f32 states the small-
-        # denominator behavior must track the state dtype (ADVICE r4)
+        # denominator behavior must track the state dtype
         eps = jnp.finfo(jnp.result_type(step.u_new)).eps
         # Guard both degenerate limits: den == 0 (the reference's explicit
         # `iszero(den) && return 0`, perform_step.jl:45) and non-finite
         # operands (inf/inf when a truncated/diverged solve overflows the
-        # stage values — observed on TPU when stiffness regularization
+        # stage values — observed when stiffness regularization
         # drives the dynamics into max_steps saturation; the overflow
         # analog of the reference's zero-denominator case). Double-where
         # so the zeroed branch also has zero — not NaN — gradients.

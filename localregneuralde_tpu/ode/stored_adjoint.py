@@ -12,8 +12,7 @@ entirely:
   ``k1_{i+1} = k7`` of that step);
 - **backward**: a reverse ``while_loop`` over ONLY the ``naccept`` recorded
   steps, transposing one step per iteration via ``jax.vjp`` of the step
-  function — which routes through the hand-fused Pallas backward kernel when
-  the fused step is in use. The FSAL chain is carried explicitly
+  function. The FSAL chain is carried explicitly
   (``a_k``: cotangent on the incoming k1 ≡ previous step's k7); saveat
   cotangents are injected at the steps whose interval contains each output
   time, exactly mirroring the forward interpolation.
@@ -78,11 +77,7 @@ def stored_odesolve(
     stateful: bool = False,
     f_state: Any = None,
     reservoir_key=None,
-    step_fn=None,
-    step_vjp=None,
     knot_window: Optional[int] = None,
-    persistent_fn=None,
-    sweep_fn=None,
 ) -> ODESolution:
     t0, t_end = float(tspan[0]), float(tspan[1])
     if saveat is None:
@@ -115,44 +110,19 @@ def stored_odesolve(
     solve_kwargs = dict(rtol=rtol, atol=atol, max_steps=max_steps)
 
     def raw_step(p_, u, t, dt, k1):
-        if step_fn is not None:
-            return step_fn(fn_st, u, t, dt, k1, p_, None)
         return tsit5_step(fn_st, u, t, dt, k1, p_, None)
 
     def step_out(p_, u, t, dt, k1):
         """(u_new, (k2..k7)) of one Tsit5 step — the unit the backward
-        transposes. Routes through the fused Pallas step when configured
-        (whose registered custom VJP is the fused backward kernel)."""
+        transposes."""
         res = raw_step(p_, u, t, dt, k1)
         return res.u_new, tuple(res.ks[1:])
 
     def step_transpose(p_, u, t, dt, k1, d_unew, d_ks):
-        """Cotangents of one step: (d_p, d_u, d_k1). With ``step_vjp`` the
-        caller supplies the hand-fused backward directly — avoiding
-        jax.vjp's dead primal recompute of the step per sweep iteration."""
-        if step_vjp is not None:
-            return step_vjp(p_, u, t, dt, k1, d_unew, d_ks)
+        """Cotangents of one step: (d_p, d_u, d_k1)."""
         _, vjp = jax.vjp(step_out, p_, u, t, dt, k1)
         d_p, d_u, _d_t, _d_dt, d_k1 = vjp((d_unew, d_ks))
         return d_p, d_u, d_k1
-
-    # Will the persistent whole-solve kernel serve this configuration?
-    # (Static: shapes/plan only.) Decides whether the backward may use the
-    # persistent sweep — in the two-level regime the windowed replay
-    # reproduces the PERSISTENT kernel's arithmetic, so it must never run
-    # against an XLA-loop forward (and vice versa: the XLA windowed replay
-    # must never run against persistent-recorded checkpoints).
-    persistent_active = False
-    if persistent_fn is not None:
-        persistent_active = bool(
-            persistent_fn(
-                u0, (t0, t_end), p, saveat_arr=saveat_arr, rtol=rtol,
-                atol=atol, max_steps=max_steps, record_knots=True,
-                knot_dense_cap=dense_cap, knot_stride=stride,
-                reservoir_key=reservoir_key, dt0=None, f_state=f_state,
-                plan_only=True,
-            )
-        )
 
     def run_solve(u0_, p_, saveat_):
         # THE forward solve: differentiable outputs and fenced auxiliaries
@@ -160,8 +130,7 @@ def stored_odesolve(
         return odesolve(
             f, u0_, (t0, t_end), p_, saveat=saveat_, adjoint="none",
             record_knots=True, knot_stride=stride, knot_dense_cap=dense_cap,
-            step_fn=step_fn, stateful=stateful, f_state=f_state,
-            reservoir_key=reservoir_key, persistent_fn=persistent_fn,
+            stateful=stateful, f_state=f_state, reservoir_key=reservoir_key,
             **solve_kwargs,
         )
 
@@ -248,42 +217,7 @@ def stored_odesolve(
             )
             return a_u, a_k, a_p
 
-        # persistent whole-sweep Pallas kernel (fused_solve_bwd.py): the
-        # dense sweep in one program; in the two-level regime (only valid
-        # against a persistent forward — see persistent_active above) the
-        # kernel branches per solve between the dense sweep and in-kernel
-        # window replay from the recorded checkpoints. May decline (None)
-        # on VMEM plan.
-        swept = None
-        if sweep_fn is not None and not two_level:
-            swept = sweep_fn(
-                p, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y
-            )
-        elif sweep_fn is not None and two_level and persistent_active:
-            swept = sweep_fn(
-                p, knot_ts, knot_us, naccept, saveat_arr, ct_ys, ct_y,
-                two_level_ctx=dict(
-                    ckpt_ts=ckpt_ts, ckpt_us=ckpt_us, ckpt_ks=ckpt_ks,
-                    ckpt_dts=ckpt_dts, ckpt_qolds=ckpt_qolds,
-                    t_end=t_end, rtol=rtol, atol=atol,
-                    max_steps=max_steps, stride=stride,
-                    dense_cap=dense_cap,
-                    use_reservoir=reservoir_key is not None,
-                ),
-            )
-
-        if swept is None and two_level and persistent_active:
-            # the persistent forward recorded PADDED knots/checkpoints the
-            # XLA replay cannot consume; plan consistency between pf's
-            # sweep_feasible gate and the sweep builder should make this
-            # unreachable — fail loudly rather than crash on shapes.
-            raise RuntimeError(
-                "persistent two-level sweep declined after the persistent "
-                "forward recorded checkpoints (plan inconsistency)"
-            )
-        if swept is not None:
-            a_u, a_k, a_p = swept
-        elif not two_level:
+        if not two_level:
             a_u, a_k, a_p = dense_sweep(a0)
         else:
             W = stride

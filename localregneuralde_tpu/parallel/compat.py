@@ -16,9 +16,9 @@ except ImportError:  # pragma: no cover — older jax
 
 
 def shard_map_nocheck(f, mesh, in_specs, out_specs):
-    """``shard_map`` with replication/VMA checking disabled (required for
-    bodies containing ``pallas_call``, which declares no vma), portable
-    across the ``check_rep``/``check_vma`` rename."""
+    """``shard_map`` with replication/VMA checking disabled (the per-shard
+    train step and samplers return values the checker cannot prove
+    replicated), portable across the ``check_rep``/``check_vma`` rename."""
     for kwargs in ({"check_vma": False}, {"check_rep": False}):
         try:
             return _shard_map(

@@ -1,8 +1,11 @@
 """Device-mesh helpers for SPMD execution.
 
 The reference has no distributed execution (SURVEY.md §2e); this module is
-the additive TPU-native layer: a named ``jax.sharding.Mesh`` over ICI with
-``data`` (batch) and ``model`` (tensor-parallel) axes. Collectives are
+the additive layer: a named ``jax.sharding.Mesh`` over the devices in
+``jax.devices()`` order, with ``data`` (batch) and ``model``
+(tensor-parallel) axes. The flat order suits GPUs of one host that are
+joined all to all (NVLink), where no device pair is farther apart than
+another. Collectives are
 inserted by XLA from the sharding annotations (GSPMD), not hand-written.
 """
 from __future__ import annotations

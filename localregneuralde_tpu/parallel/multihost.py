@@ -1,17 +1,16 @@
-"""Multi-process (multi-host) training: pod-scale meshes over DCN.
+"""Multi-process (multi-host) training: meshes that span processes.
 
 The reference is single-process only (one Julia process, one CUDA device —
-SURVEY.md §2e); this module is the additive TPU-native scaling layer for
-meshes that span PROCESSES — TPU pod slices where each host owns 4/8 chips,
-or multi-node CPU/GPU clusters. It composes with the existing GSPMD layer
-(`sharded_train.py`) unchanged: `make_mesh` builds over the GLOBAL
-`jax.devices()`, `make_sharded_train_step` is already SPMD, and XLA routes
-the gradient `psum` over ICI within a host and DCN across hosts. What this
-module adds is the process-boundary plumbing that single-process code gets
-for free:
+SURVEY.md §2e); this module is the additive scaling layer for meshes that
+span PROCESSES — several GPU hosts, or several CPU processes. It composes
+with the existing GSPMD layer (`sharded_train.py`) unchanged: `make_mesh`
+builds over the GLOBAL `jax.devices()`, `make_sharded_train_step` is
+already SPMD, and XLA routes the gradient `psum` within a host and across
+hosts. What this module adds is the process-boundary plumbing that
+single-process code gets for free:
 
 - **initialize()** — `jax.distributed` bring-up (coordinator handshake);
-  on Cloud TPU pods the arguments auto-detect from the metadata server.
+  pass the coordinator address, process count and process id.
 - **place_global(tree, shardings)** — build global arrays from host values
   every process holds (params, optimizer state): works for ANY sharding —
   replicated, DP, or TP that spans process boundaries — because each
@@ -50,9 +49,9 @@ def initialize(coordinator_address: Optional[str] = None,
                **kwargs) -> None:
     """Bring up ``jax.distributed`` (idempotent no-op if already up).
 
-    On Cloud TPU pods call with no arguments (auto-detected). Elsewhere
-    pass ``coordinator_address='host0:port'``, ``num_processes``,
-    ``process_id``. MUST run before the first backend touch (any jax
+    Pass ``coordinator_address='host0:port'``, ``num_processes`` and
+    ``process_id`` (cluster schedulers JAX knows, such as SLURM, fill
+    them in when they are omitted). MUST run before the first backend touch (any jax
     array op) — set platform overrides (``jax.config.update``) first.
     """
     # is_initialized does NOT touch the backend (jax.process_count()
@@ -82,7 +81,7 @@ def place_global(tree: Any, shardings: Any) -> Any:
     ``NamedSharding``. Every process contributes the shards its devices
     address (``jax.make_array_from_callback`` slices the host value), so
     this works for replicated leaves AND leaves sharded across the
-    process boundary (e.g. TP weights on a pod). The single-process
+    process boundary (e.g. TP weights across hosts). The single-process
     ``jax.device_put`` path cannot do the latter.
     """
 

@@ -5,7 +5,7 @@ Strategy (additive over the single-device semantics, SURVEY.md §2e):
 - **Data parallel**: the batch (leading) dimension of inputs is sharded over
   the ``data`` mesh axis. Because the loss is a mean over the whole batch
   tensor and parameters are replicated (or TP-sharded), XLA/GSPMD inserts the
-  gradient ``psum`` over ICI automatically — no hand-written collectives.
+  gradient ``psum`` automatically — no hand-written collectives.
 - **Tensor parallel**: wide Dense weights inside the neural-ODE dynamics are
   sharded column-wise/row-wise over the ``model`` axis via rule-based
   PartitionSpecs; XLA inserts the activation all-reduce per RK stage.

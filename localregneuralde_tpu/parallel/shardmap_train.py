@@ -4,17 +4,15 @@ The default sharded path (``sharded_train.make_sharded_train_step``) keeps
 the reference's shared-adaptive-grid semantics exactly: GSPMD computes ONE
 error norm over the whole distributed batch, so every device executes the
 same accept/reject sequence (``src/utils.jl:60-61`` controller semantics,
-one dt for the batch). The cost is that the whole-solve persistent Pallas
-kernels cannot run — a Pallas kernel cannot participate in the global
-norm's cross-chip ``psum`` mid-solve, so the solver falls back to the XLA
-loops under GSPMD sharding.
+one dt for the batch). The cost is a cross-device reduction of the error
+norm on every attempt, and every device steps as often as the hardest
+sub-batch needs.
 
-This module is the opt-in alternative for multi-chip throughput: each
-shard runs the COMPLETE single-device train computation — persistent
-solve + persistent stored-adjoint sweep included — on its local
-sub-batch with its OWN adaptive grid, and the only cross-chip
+This module is the opt-in alternative for multi-device throughput: each
+shard runs the COMPLETE single-device train computation on its local
+sub-batch with its OWN adaptive grid, and the only cross-device
 communication is one fused ``pmean`` of (loss, grads, scalar state) per
-step, riding ICI.
+step.
 
 **Documented estimator deviation**: with ``n`` shards the regularized
 objective becomes the mean of ``n`` independent per-sub-batch solves

@@ -1,6 +1,6 @@
 """Virtual Brownian tree: counter-based, rejection-consistent noise.
 
-TPU-native replacement for StochasticDiffEq's NoiseProcess with
+Replacement for StochasticDiffEq's NoiseProcess with
 rejection-safe resampling (SURVEY.md §2d): sampling ``W(t)`` is a *pure
 function* of (key, t), realized by a fixed-depth binary Brownian-bridge
 descent over the time interval. Because the path is deterministic given the
@@ -12,7 +12,7 @@ gets from DiffEqNoiseProcess's bridge machinery.
 approximation in SRI methods, reference ``src/perform_step.jl:57-60``) is a
 second independent tree derived from the same key.
 
-Design notes (TPU): the descent is a static-length ``fori_loop`` of
+Design notes: the descent is a static-length ``fori_loop`` of
 ``depth`` (default 24 → dt resolution 2^-24·T); each level draws one
 normal per state element with a counter-derived key — no host RNG state,
 fully traceable, vmappable.

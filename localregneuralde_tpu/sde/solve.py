@@ -1,6 +1,6 @@
 """Adaptive SDE integration: bounded XLA loop + virtual Brownian tree.
 
-TPU-native replacement for the StochasticDiffEq machinery the reference
+Replacement for the StochasticDiffEq machinery the reference
 delegates to (SURVEY.md §2d): adaptive accept/reject stepping with
 rejection-consistent noise (the VBT makes retried steps see the same
 Brownian path), linear dense output for ``saveat`` (matching RODESolution
@@ -121,8 +121,6 @@ def sdesolve(
     brownian_depth: int = 24,
     record_knots: bool = False,
     noise_shape: Optional[tuple] = None,
-    persistent_fn=None,
-    persistent_sweep_fn=None,
 ) -> SDESolution:
     """Integrate ``du = f dt + g dW`` over ``tspan``.
 
@@ -141,8 +139,7 @@ def sdesolve(
             solver=solver, delta=delta, saveat=saveat, max_steps=max_steps,
             dt0=dt0, stateful=stateful, f_state=f_state, g_state=g_state,
             reservoir_key=reservoir_key, brownian_depth=brownian_depth,
-            noise_shape=noise_shape, persistent_fn=persistent_fn,
-            persistent_sweep_fn=persistent_sweep_fn,
+            noise_shape=noise_shape,
         )
     if solver not in _SOLVERS:
         raise ValueError(f"unknown SDE solver {solver!r}; one of {list(_SOLVERS)}")
@@ -170,26 +167,6 @@ def sdesolve(
     else:
         saveat_arr = jnp.atleast_1d(jnp.asarray(saveat, dtype))
     n_save = saveat_arr.shape[0]
-
-    # Persistent-loop Pallas path (ops/pallas/fused_sde_solve.py): whole
-    # solve incl. in-kernel Brownian noise in one program. Non-
-    # differentiated solves only (inference / the fenced primal of the
-    # stored adjoint); the stored backward consumes the RECORDED noise, so
-    # no replay machinery is needed. May decline (None) on family/plan.
-    if (
-        persistent_fn is not None
-        and adjoint == "none"
-        and noise_shape is None
-    ):
-        sol = persistent_fn(
-            u0, tspan, p, noise_key=noise_key, saveat_arr=saveat_arr,
-            rtol=rtol, atol=atol, solver=solver, delta=delta,
-            max_steps=max_steps, record_knots=record_knots,
-            reservoir_key=reservoir_key, brownian_depth=brownian_depth,
-            dt0=dt0, f_state=f_state, g_state=g_state,
-        )
-        if sol is not None:
-            return sol
 
     w_shape = tuple(noise_shape) if noise_shape is not None else u0.shape
     tree = VirtualBrownianTree(

@@ -60,8 +60,6 @@ def stored_sdesolve(
     reservoir_key=None,
     brownian_depth: int = 24,
     noise_shape: Optional[tuple] = None,
-    persistent_fn=None,
-    persistent_sweep_fn=None,
 ) -> SDESolution:
     t0, t_end = float(tspan[0]), float(tspan[1])
     if saveat is None:
@@ -119,8 +117,7 @@ def stored_sdesolve(
         return sdesolve(
             f, g, u0_, (t0, t_end), p_, saveat=saveat_, adjoint="none",
             record_knots=True, stateful=stateful, f_state=f_state,
-            g_state=g_state, reservoir_key=reservoir_key,
-            persistent_fn=persistent_fn, **solve_kwargs,
+            g_state=g_state, reservoir_key=reservoir_key, **solve_kwargs,
         )
 
     def outputs(sol):
@@ -160,34 +157,14 @@ def stored_sdesolve(
             ct_ys * unwritten.reshape((-1,) + (1,) * u0.ndim), axis=0
         )
 
-        # whole-sweep persistent kernel (fused_sde_sweep.py): transposes
-        # every recorded step in ONE TPU program; the closure declines
-        # (returns None, statically) outside its family/plan
-        if persistent_sweep_fn is not None:
-            out = persistent_sweep_fn(
-                p, knot_ts, knot_us, knot_dws, knot_dzs, naccept,
-                saveat_arr, ct_ys, ct_y,
-            )
-            if out is not None:
-                a_u, d_p = out
-                return (
-                    a_u + d_u0_pre, d_p, jnp.zeros_like(saveat_arr)
-                )
-
         def body(carry):
             j, a_u, a_p = carry
             t = knot_ts[j]
             tn = knot_ts[j + 1]
             dt = tn - t
-            # the persistent forward records knots PADDED to the 128
-            # lane (fused_sde_solve.py); slice per step. u-knot pads are
-            # exact zeros, but the dW/dZ pads hold LIVE Brownian draws
-            # (the kernel draws on the full padded tile) — the slices
-            # below are load-bearing, not cosmetic
-            u = knot_us[j][..., : u0.shape[-1]]
-            nw = u0.shape[-1] if noise_shape is None else noise_shape[-1]
-            dW = lax.stop_gradient(knot_dws[j][..., :nw])
-            dZ = lax.stop_gradient(knot_dzs[j][..., :nw])
+            u = knot_us[j]
+            dW = lax.stop_gradient(knot_dws[j])
+            dZ = lax.stop_gradient(knot_dzs[j])
 
             # linear saveat interpolation cotangent split
             theta = jnp.clip((saveat_arr - t) / dt, 0.0, 1.0)

@@ -1,6 +1,6 @@
 """AOT serving export: serialized StableHLO artifacts via ``jax.export``.
 
-TPU-native serving story (no reference counterpart — the reference deploys
+Serving story (no reference counterpart — the reference deploys
 nothing; ``experiments/*/main.jl`` only train). A trained Neural-DE model is
 exported as a platform-checked, shape-checked StableHLO program that a
 serving process can load and run **without the framework, the model builder,
@@ -12,25 +12,22 @@ or the Python layer zoo** — only ``jax`` is needed at load time:
     fn = load_exported("model.stablehlo")                   # serving process
     y = fn(batch)
 
-Design notes (TPU-first):
+Design notes:
 
-- **Static shapes.** The adaptive integrator's shared-batch error norm,
-  the Pallas tile planner, and the MXU layouts are all static-shape
-  programs — exactly what makes them fast. Batch polymorphism via symbolic
-  dims would force the lowest-common-denominator lowering (and Mosaic
-  kernels do not lower under symbolic shapes at all), so exports are
-  per-batch-size; ``export_model_multi`` packs several batch sizes into one
-  artifact and dispatch picks by leading dim.
+- **Static shapes.** The adaptive integrator's shared-batch error norm
+  and the compiled layouts are static-shape programs. Batch polymorphism
+  via symbolic dims would force the lowest-common-denominator lowering,
+  so exports are per-batch-size; ``export_model_multi`` packs several
+  batch sizes into one artifact and dispatch picks by leading dim.
 - **Params are baked** (``freeze=True`` default): serving wants one
   self-contained executable, not a (weights, program) pair. ``freeze=False``
   exports ``fn(params, x)`` for weight-hot-swap setups.
 - **Eval-mode forward**: ``training=False`` — no reg-step sampling, no PRNG
   requirements, ReparameterizeLayer returns the posterior mean
   (reference ``common.jl:73-77`` semantics).
-- The export captures whatever the model lowered to on the export platform:
-  on TPU that includes the Mosaic custom calls of the persistent Pallas
-  kernels (platform-specific by nature); pass ``platforms=('cpu', 'tpu')``
-  with ``use_pallas=False`` models for portable artifacts.
+- The export captures whatever the model lowered to on the export
+  platform; pass ``platforms=('cpu', 'cuda')`` for an artifact that loads
+  on either.
 """
 from __future__ import annotations
 

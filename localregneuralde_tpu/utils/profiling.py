@@ -3,7 +3,7 @@
 The reference's observability is manual wall-clock segmentation of the
 training step (SURVEY.md §5: forward/backward/optimizer timed inside
 ``run_training_step``, fed into AverageMeters). This module provides the
-TPU-native equivalents:
+equivalents:
 
 - ``PhaseTimer``: named wall-clock segments with device-sync fencing
   (``block_until_ready``) so async dispatch doesn't hide work;

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""One-command real-dataset ingestion (VERDICT round-3 ask #6).
+"""One-command real-dataset ingestion.
 
 Zero-egress environments can't download MNIST / CIFAR-10 / PhysioNet, but
 the loaders (`harness/data.py`, `harness/latent_runner.py`) accept the

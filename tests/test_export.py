@@ -167,13 +167,12 @@ def test_export_fn_score_sde_sampler(tmp_path):
 
 
 def test_export_multi_platform_artifact(tmp_path):
-    """platforms=('cpu','tpu') lowers one portable artifact (XLA-path
-    models only — Mosaic custom calls are TPU-specific by nature); it must
+    """platforms=('cpu','cuda') lowers one portable artifact; it must
     load and run on the current (cpu) backend."""
     model, params, state = _tiny_model(jax.random.PRNGKey(0))
     x = jax.random.normal(jax.random.PRNGKey(5), (4, 3, 4, 1))
     exp = export_model(
-        model, params, state, x, platforms=("cpu", "tpu")
+        model, params, state, x, platforms=("cpu", "cuda")
     )
     path = str(tmp_path / "portable.stablehlo")
     save_exported(exp, path)

@@ -217,26 +217,6 @@ def test_latent_eval_batch_larger_than_test_split(tmp_path):
     assert np.isfinite(out["best_eval_mse"])
 
 
-def test_end_to_end_latent_ode_pallas(tmp_path):
-    """The latent family rides the persistent chain kernels when
-    use_pallas is on (interpret mode here; gating is family-matched)."""
-    from localregneuralde_tpu.harness.latent_runner import (
-        run_latent_ode_experiment,
-    )
-
-    cfg = _tiny_cfg("time_series")
-    cfg.model.use_pallas = "on"
-    cfg.model.ts_in_dims = 5
-    cfg.model.ts_hidden_dims = 8
-    cfg.model.ts_latent_dims = 6
-    cfg.model.ts_node_dims = 4
-    cfg.dataset.eval_batchsize = 16
-    cfg.train.checkpoint_dir = str(tmp_path / "ckpt")
-    cfg.train.log_dir = str(tmp_path / "logs")
-    out = run_latent_ode_experiment(cfg, "tiny_ts_pallas")
-    assert np.isfinite(out["best_eval_mse"])
-
-
 def test_settle_state_shapes_prevents_retrace():
     """ReparameterizeLayer inits mu/logvar as (1,1) placeholders that become
     (B, latent) on the first call; settle_state_shapes must pre-grow them so

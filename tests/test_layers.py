@@ -139,8 +139,7 @@ def test_tdchain_conv_split_matches_concat():
 
 def test_batchnorm_eval_stats_batch():
     """eval_stats='batch': eval-mode normalization uses current batch
-    statistics (escape hatch for BN-inside-ODE-dynamics — RESULTS.md
-    round-4 diagnosis); running stats are kept but unused in eval, and
+    statistics (escape hatch for BN-inside-ODE-dynamics); running stats are kept but unused in eval, and
     eval output equals training output given identical inputs."""
     import pytest
 

@@ -97,41 +97,3 @@ def test_sde_solution_adapters():
     assert arr.shape == (4, 2)
     ts = diffeqsol_to_timeseries(sol)
     assert ts.shape == (4, 2, 2)  # (B, T, F)
-
-
-def test_grad_precision_knob():
-    """solver.grad_precision: 'default' drops the stored-adjoint backward
-    recompute dots to the backend-fast path; gradients must stay equal on
-    CPU (where matmul precision is moot) and the knob must validate."""
-    import numpy as np
-    import pytest
-    from jax.flatten_util import ravel_pytree
-
-    from localregneuralde_tpu.models import NeuralODE, TDChain, diffeqsol_to_array
-    from localregneuralde_tpu.nn import Dense
-
-    def build(gp):
-        td = TDChain(Dense(9, 8, "tanh"), Dense(9, 8))
-        return NeuralODE(
-            td, rtol=1e-3, atol=1e-3, max_steps=32, regularize="none",
-            grad_precision=gp,
-        )
-
-    node_m = build("match")
-    node_d = build("default")
-    assert node_d.bwd_precision is None
-    params, state = node_m.init(jax.random.PRNGKey(0))
-    x = jax.random.normal(jax.random.PRNGKey(1), (4, 8))
-
-    def loss(node, p):
-        sol, _ = node.apply(p, state, x, training=True)
-        return jnp.sum(diffeqsol_to_array(sol) ** 2)
-
-    g_m = jax.grad(lambda p: loss(node_m, p))(params)
-    g_d = jax.grad(lambda p: loss(node_d, p))(params)
-    v_m, _ = ravel_pytree(g_m)
-    v_d, _ = ravel_pytree(g_d)
-    np.testing.assert_allclose(np.asarray(v_m), np.asarray(v_d), rtol=1e-6)
-
-    with pytest.raises(ValueError, match="grad_precision"):
-        build("fast")

@@ -5,8 +5,8 @@ localhost), vs the single-process 4-device run of the same step.
 This is the process-boundary analog of test_parallel.py — it validates
 ``parallel/multihost.py``: distributed bring-up, global placement of a
 host-built TrainState, per-process batch slicing + global batch assembly,
-and the cross-process gather for checkpointing. On a real TPU pod the
-same code runs with ICI/DCN instead of Gloo.
+and the cross-process gather for checkpointing. On several GPU hosts the
+same code runs with NCCL instead of Gloo.
 """
 import os
 import socket

@@ -3,7 +3,7 @@
 The K-step scanned program (``train.make_multi_train_step``) must reproduce
 K sequential single-step calls — same params trajectory, same step counter,
 same NFE observables — and the block-mode runner must preserve the
-single-step loop's logging/eval cadence and results. TPU-first addition
+single-step loop's logging/eval cadence and results. An addition
 (amortizes per-dispatch host latency); no reference counterpart.
 """
 import os

@@ -1,4 +1,6 @@
 """Native C++ prefetching loader tests (built on demand with g++)."""
+import os
+
 import numpy as np
 import pytest
 
@@ -54,3 +56,26 @@ def test_make_dataloader_prefers_native():
     x, y = _data()
     dl = make_dataloader((x, y), 32)
     assert isinstance(dl, NativeDataloader)
+
+
+def test_library_path_is_keyed_on_the_source(tmp_path):
+    """The build directory is named after the source's hash: the same
+    source maps to one library, an edited source to another."""
+    from localregneuralde_tpu.native.loader import library_path
+
+    a = tmp_path / "a.cpp"
+    b = tmp_path / "b.cpp"
+    c = tmp_path / "c.cpp"
+    a.write_text("int f() { return 1; }\n")
+    b.write_text("int f() { return 1; }\n")
+    c.write_text("int f() { return 2; }\n")
+    assert library_path(str(a)) == library_path(str(b))
+    assert library_path(str(a)) != library_path(str(c))
+    assert os.path.basename(library_path(str(a))) == "libnativeloader.so"
+
+
+def test_loaded_library_was_built_from_this_source():
+    from localregneuralde_tpu.native import loader
+
+    assert loader._build() == loader.library_path()
+    assert os.path.exists(loader.library_path())

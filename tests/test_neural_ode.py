@@ -132,13 +132,6 @@ def test_constructor_validation():
         NeuralODE(dyn, regularize_type="bogus")
     with pytest.raises(ValueError):
         NeuralODE(dyn, solver="rk4")
-    with pytest.raises(ValueError):
-        # width-changing chain: matches neither the TD-MLP family nor the
-        # conv family nor the autonomous Dense-chain family
-        NeuralODE(Chain(Dense(2, 3)), use_pallas=True)
-    # a state-preserving Dense chain IS a valid pallas family now (the
-    # latent gen-dynamics family)
-    assert NeuralODE(dyn, use_pallas=True)._pallas_family == "chain"
     # bool coercion (reference neural_ode.jl:14-16)
     assert NeuralODE(dyn, regularize=True).regularize == "unbiased"
     assert NeuralODE(dyn, regularize=False).regularize == "none"
@@ -154,44 +147,10 @@ def test_unknown_adjoint_raises():
         )
 
 
-def test_precision_high_declines_pallas():
-    """Mosaic has no dot_general lowering for Precision.HIGH (3-pass bf16):
-    use_pallas must decline to the XLA path instead of crashing at lowering
-    (observed on TPU: NotImplementedError 'Unsupported dot precision: HIGH'
-    inside pallas_call)."""
-    dyn = TDChain(Dense(3, 4, "tanh"), Dense(5, 2))
-    node = NeuralODE(
-        dyn, regularize="unbiased", max_steps=32, use_pallas=True,
-        precision="high",
-    )
-    assert node.use_pallas is False
-    assert node.mm_precision == "high"
-    ps, st = node.init(jax.random.PRNGKey(0))
-    x = jax.random.normal(jax.random.PRNGKey(1), (8, 2))
-    sol, st = node.apply(ps, st, x)
-    assert diffeqsol_to_array(sol).shape == (8, 2)
-    # 'highest' stays eligible for the fused kernels
-    node_hi = NeuralODE(dyn, max_steps=32, use_pallas=True,
-                        precision="highest")
-    assert node_hi.use_pallas is True
-
-
-def test_precision_high_declines_persistent_sde():
-    from localregneuralde_tpu.models import NeuralDSDE
-
-    drift = Chain(Dense(2, 4, "tanh"), Dense(4, 2))
-    diffusion = Dense(2, 2)
-    sde = NeuralDSDE(
-        drift, diffusion, max_steps=32, use_pallas=True,
-        use_persistent=True, precision="high",
-    )
-    assert sde.use_pallas is False
-
-
 def test_stiffness_estimate_nonfinite_guard():
     """Overflowed stage values (inf/NaN — e.g. a diverged truncated solve)
     must yield reg = 0 with ZERO (not NaN) gradients: a NaN here silently
-    poisons the training loss (observed on TPU at max_steps saturation).
+    poisons the training loss (observed at max_steps saturation).
     The double-where keeps the zeroed branch's backward clean."""
     from localregneuralde_tpu.ode.step import (
         Tsit5StepResult,

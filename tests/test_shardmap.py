@@ -2,8 +2,8 @@
 8-device CPU mesh.
 
 The shard_map path is the opt-in throughput alternative to the GSPMD path:
-each shard runs the complete single-device computation (persistent Pallas
-kernels included) on its local sub-batch with its OWN adaptive grid; the
+each shard runs the complete single-device computation on its local
+sub-batch with its OWN adaptive grid; the
 only cross-shard communication is one pmean of (loss, grads, scalar state)
 per step. These tests pin the documented estimator semantics exactly.
 """
@@ -201,97 +201,6 @@ def test_shardmap_latent_family_tuple_wreg():
     assert np.isfinite(float(loss))
     ts, loss, stats = step(ts, shard_batch(data, mesh), (1.0, 0.1), 1e-3)
     assert np.isfinite(float(loss))
-
-
-def test_shardmap_keeps_persistent_pallas_path():
-    """THE point of the shard_map path: the persistent whole-solve Pallas
-    kernels run per-shard on the local sub-batch (under GSPMD they see a
-    gathered full batch). Trace-time counter on the persistent wrapper
-    proves engagement; results match the plain-XLA shard_map step.
-
-    Local batch must be >= 8 (the sweep's smallest tile) — 2 shards of 8
-    here; production DP shards are far larger."""
-    from localregneuralde_tpu.harness.losses import logitcrossentropy
-    from localregneuralde_tpu.models import (
-        NeuralODE,
-        TDChain,
-        diffeqsol_to_array,
-    )
-    from localregneuralde_tpu.nn import Chain, Dense, WrappedFunction
-    import localregneuralde_tpu.models.neural_ode as node_mod
-
-    F, H, B = 32, 16, 16
-
-    def build(up):
-        td = TDChain(Dense(F + 1, H, "tanh"), Dense(H + 1, F))
-        node = NeuralODE(
-            td, regularize="none", rtol=1e-4, atol=1e-4, max_steps=64,
-            use_pallas=up, use_persistent=up,
-        )
-        return Chain(
-            neural_ode=node,
-            sol_to_arr=WrappedFunction(diffeqsol_to_array),
-            classifier=Dense(F, 10),
-        )
-
-    def loss_fn(model, params, state, data, w_reg, *, training=True):
-        x, y = data
-        y_pred, st_ = model(params, state, x, training=training)
-        ce = logitcrossentropy(y_pred, y)
-        return ce, st_, {"nfe": st_["neural_ode"]["nfe"]}
-
-    mesh = make_mesh({"data": 2})
-    cfg = ExperimentConfig()
-    cfg.optimizer.scheduler.lr_scheduler = "constant"
-    opt, _ = construct_optimizer(cfg)
-    x = 0.3 * jax.random.normal(jax.random.PRNGKey(1), (B, F))
-    y = jnp.eye(10)[jax.random.randint(jax.random.PRNGKey(2), (B,), 0, 10)]
-
-    import localregneuralde_tpu.ops.pallas.fused_solve as fsolve
-    import localregneuralde_tpu.ops.pallas.fused_solve_bwd as fsweep
-
-    calls = {"n": 0}
-
-    def counted(fn):
-        def wrapper(*a, **kw):
-            out = fn(*a, **kw)
-            if out is not None:  # engaged, not declined
-                calls["n"] += 1
-            return out
-        return wrapper
-
-    patched = [
-        (fsolve, "persistent_tsit5_solve"),
-        (fsolve, "persistent_chain_solve"),
-        (fsweep, "persistent_stored_sweep"),
-        (fsweep, "persistent_chain_sweep"),
-        (fsweep, "persistent_two_level_sweep"),
-    ]
-    originals = [(m, n, getattr(m, n)) for m, n in patched]
-    for m, n, f in originals:
-        setattr(m, n, counted(f))
-    try:
-        res = {}
-        for name, up in (("pallas", True), ("plain", False)):
-            model = build(up)
-            ts = create_train_state(model, opt, jax.random.PRNGKey(0))
-            ts = settle_state_shapes(model, loss_fn, ts, (x, y), 1.0)
-            ts = shard_train_state(ts, mesh)
-            step = make_shardmap_train_step(model, loss_fn, opt, mesh)
-            if name == "pallas":
-                calls["n"] = 0
-            ts2, loss, stats = step(ts, shard_batch((x, y), mesh), 1.0, 1e-3)
-            if name == "pallas":
-                assert calls["n"] > 0, (
-                    "persistent kernels declined at the local sub-batch"
-                )
-            res[name] = (float(loss), float(stats["nfe"]))
-    finally:
-        for m, n, f in originals:
-            setattr(m, n, f)
-    # same per-shard grids (kernel math parity) => identical mean NFE
-    assert res["pallas"][1] == res["plain"][1]
-    np.testing.assert_allclose(res["pallas"][0], res["plain"][0], rtol=2e-5)
 
 
 def test_shardmap_bool_stats_reduce_by_all_and_dim_collisions():
